@@ -1,0 +1,167 @@
+"""BVH construction: wrap -> Morton encode -> stable sort -> aggregate.
+
+Counterpart of ``implicitbvh_tpu/build.py`` (``wrap_bounding_volumes``,
+``_sort_by_morton``, the BBox-node aggregation and ``BVH``/``build``).
+The sort is ``torch.sort(stable=True)`` on the Morton key followed by one
+gather of every leaf field, which keeps the JAX package's stable order for
+equal codes.  BBox nodes are a plain per-level min/max over a perfect tree
+padded with ``finfo.max`` sentinels.  BSphere nodes are not ported yet.
+"""
+
+from __future__ import annotations
+
+import builtins
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+from .morton import DefaultMortonAlgorithm, morton_encode
+from .options import DEFAULT_OPTIONS, BVHOptions
+from .tree import ImplicitTree, compute_skips
+from .utils import as_tensor
+from .volumes import BBox, BSphere, Volume, bbox_of_bsphere, center_coords
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaves:
+    """Leaf volumes with their user indices and Morton codes (int64)."""
+
+    volume: Volume
+    index: torch.Tensor
+    morton: torch.Tensor
+
+    def __getitem__(self, idx):
+        return Leaves(self.volume[idx], self.index[idx], self.morton[idx])
+
+
+def wrap_bounding_volumes(volumes: Volume,
+                          options: BVHOptions = DEFAULT_OPTIONS,
+                          indices=None) -> Leaves:
+    """Attach user indices (1-based by default) and zeroed Morton codes."""
+    n = volumes.batch_shape[0]
+    dev = volumes.device
+    if indices is None:
+        indices = torch.arange(1, n + 1, dtype=options.index_dtype, device=dev)
+    else:
+        indices = as_tensor(indices, options.index_dtype, dev)
+    return Leaves(volumes, indices, torch.zeros(n, dtype=torch.int64,
+                                                device=dev))
+
+
+def _sort_by_morton(leaves: Leaves) -> Leaves:
+    """Stable sort of every leaf field along the Z-curve."""
+    perm = torch.sort(leaves.morton, stable=True).indices
+    return leaves[perm]
+
+
+def _aggregate_bbox(leaves_vol: Volume, tree: ImplicitTree,
+                    built_level: int) -> BBox:
+    """BBox nodes in memory-index order (level 1 first): per-level pairwise
+    min/max over the perfect tree.  The ``finfo.max`` padding is neutral
+    for min/max and reproduces the copy of a lone left child.  Levels above
+    ``built_level`` are zero-filled."""
+    dtype, dev = leaves_vol.dtype, leaves_vol.device
+    levels = tree.levels
+    if levels < 2 or tree.real_nodes < 2:
+        z = torch.zeros(max(tree.num_nodes, 0), dtype=dtype, device=dev)
+        return BBox((z, z, z), (z, z, z))
+    box = leaves_vol if isinstance(leaves_vol, BBox) \
+        else bbox_of_bsphere(leaves_vol)
+    big = torch.finfo(dtype).max
+    pad = (1 << (levels - 1)) - tree.real_leaves
+    lo = torch.nn.functional.pad(torch.stack(box.los), (0, pad), value=big)
+    up = torch.nn.functional.pad(torch.stack(box.ups), (0, pad), value=-big)
+    per_level = {}
+    for lvl in range(levels - 1, max(built_level, 1) - 1, -1):
+        lo = lo.view(3, -1, 2).amin(-1)
+        up = up.view(3, -1, 2).amax(-1)
+        m = tree.level_nodes(lvl)
+        per_level[lvl] = (lo[:, :m], up[:, :m])
+    chunks_lo, chunks_up = [], []
+    for lvl in range(1, levels):
+        if lvl in per_level:
+            chunks_lo.append(per_level[lvl][0])
+            chunks_up.append(per_level[lvl][1])
+        else:
+            z = torch.zeros(3, tree.level_nodes(lvl), dtype=dtype, device=dev)
+            chunks_lo.append(z)
+            chunks_up.append(z)
+    flo = torch.cat(chunks_lo, dim=1)
+    fup = torch.cat(chunks_up, dim=1)
+    return BBox(tuple(flo), tuple(fup))
+
+
+def compute_build_level(tree: ImplicitTree, built_level) -> int:
+    """Integer or fractional (0..1) built level."""
+    if isinstance(built_level, int):
+        if not 1 <= built_level <= tree.levels:
+            raise ValueError(
+                f"built_level {built_level} out of [1, {tree.levels}]")
+        return built_level
+    if isinstance(built_level, float):
+        if not 0.0 <= built_level <= 1.0:
+            raise ValueError("fractional built_level must be in [0, 1]")
+        # round half to even, like the JAX package
+        return int(builtins.round(
+            tree.levels + (1 - tree.levels) * built_level))
+    raise TypeError(
+        f"built_level must be int or float, got {type(built_level)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class BVH:
+    """Implicit bounding volume hierarchy.
+
+    - ``skips``: per-level virtual-node skip table
+    - ``nodes``: node volumes in memory-index layout
+    - ``leaves``: Morton-sorted :class:`Leaves`
+    - ``built_level``: level up to which the tree is aggregated
+    - ``tree``: the static :class:`ImplicitTree` shape
+    """
+
+    skips: torch.Tensor
+    nodes: Volume
+    leaves: Leaves
+    built_level: int
+    tree: ImplicitTree
+
+    @property
+    def num_leaves(self) -> int:
+        return self.tree.real_leaves
+
+    @property
+    def device(self):
+        return self.leaves.index.device
+
+
+def build(bounding_volumes: Union[Volume, Leaves], node_kind=BBox, *,
+          built_level: Union[int, float] = 1,
+          options: BVHOptions = DEFAULT_OPTIONS,
+          indices: Optional[torch.Tensor] = None) -> BVH:
+    """Build a BVH over a batch of :class:`BSphere`/:class:`BBox` leaves
+    (or pre-wrapped :class:`Leaves` carrying custom user indices).  Runs on
+    the leaves' device."""
+    if node_kind is not BBox:
+        raise NotImplementedError(
+            "only BBox nodes are ported; BSphere nodes wait (ROADMAP)")
+    if isinstance(bounding_volumes, Leaves):
+        leaves = bounding_volumes
+        leaves = Leaves(leaves.volume,
+                        as_tensor(leaves.index, options.index_dtype,
+                                  leaves.volume.device), leaves.morton)
+    else:
+        leaves = wrap_bounding_volumes(bounding_volumes, options, indices)
+    tree = ImplicitTree.from_num_leaves(leaves.index.shape[0])
+    built_ilevel = compute_build_level(tree, built_level)
+
+    alg = options.morton
+    if not isinstance(alg, DefaultMortonAlgorithm):
+        raise NotImplementedError(
+            f"morton algorithm {type(alg).__name__} is not ported (ROADMAP)")
+    morton = morton_encode(center_coords(leaves.volume), alg)
+    leaves = _sort_by_morton(Leaves(leaves.volume, leaves.index, morton))
+    nodes = _aggregate_bbox(leaves.volume, tree, built_ilevel)
+    skips = compute_skips(tree, options.index_dtype, leaves.index.device)
+    return BVH(skips=skips, nodes=nodes, leaves=leaves,
+               built_level=built_ilevel, tree=tree)

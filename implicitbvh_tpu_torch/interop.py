@@ -1,0 +1,47 @@
+"""State carried across from the JAX package: a BVH given as numpy arrays.
+
+``bvh_from_numpy`` rebuilds the port's :class:`~.build.BVH` from a flat
+dict of numpy arrays, so the same Morton-sorted BVH can feed both
+traversals and a build difference is told apart from a traversal one.
+The dict holds:
+
+- ``"leaf_kind"``: ``"sphere"`` or ``"box"``;
+- the sorted leaf volume fields: ``leaf_x0, leaf_x1, leaf_x2, leaf_r``
+  (spheres) or ``leaf_lo0..2, leaf_up0..2`` (boxes);
+- ``"index"`` (user indices) and ``"morton"`` (codes, any integer type);
+- the BBox node fields ``node_lo0..2, node_up0..2``;
+- ``"skips"``, ``"built_level"`` and ``"num_leaves"``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .build import BVH, Leaves
+from .tree import ImplicitTree
+from .utils import resolve_device
+from .volumes import BBox, BSphere
+
+
+def bvh_from_numpy(d: dict, device=None) -> BVH:
+    dev = resolve_device(device)
+
+    def t(key, dtype=None):
+        return torch.tensor(np.asarray(d[key]), dtype=dtype, device=dev)
+
+    if d["leaf_kind"] == "sphere":
+        vol = BSphere(tuple(t(f"leaf_x{k}") for k in range(3)), t("leaf_r"))
+    elif d["leaf_kind"] == "box":
+        vol = BBox(tuple(t(f"leaf_lo{k}") for k in range(3)),
+                   tuple(t(f"leaf_up{k}") for k in range(3)))
+    else:
+        raise ValueError(f"unknown leaf_kind {d['leaf_kind']!r}")
+    morton = torch.as_tensor(np.asarray(d["morton"]).astype(np.int64),
+                             device=dev)
+    leaves = Leaves(vol, t("index", torch.int32), morton)
+    nodes = BBox(tuple(t(f"node_lo{k}") for k in range(3)),
+                 tuple(t(f"node_up{k}") for k in range(3)))
+    return BVH(skips=t("skips", torch.int32), nodes=nodes, leaves=leaves,
+               built_level=int(d["built_level"]),
+               tree=ImplicitTree.from_num_leaves(int(d["num_leaves"])))

@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels of the tile engine and their plain versions."""
+
+from .subtile import subtile_band_bits, subtile_band_bits_plain
+from .tile_contact import (tile_group_emit, tile_group_emit_plain,
+                           tile_run_counts, tile_run_counts_plain)
+
+KERNELS = (subtile_band_bits, tile_run_counts, tile_group_emit)
+
+
+def reset_launch_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0
+
+
+__all__ = ["KERNELS", "reset_launch_counts", "subtile_band_bits",
+           "subtile_band_bits_plain", "tile_group_emit",
+           "tile_group_emit_plain", "tile_run_counts",
+           "tile_run_counts_plain"]

@@ -1,0 +1,48 @@
+"""BVHOptions — the frozen configuration object.
+
+Counterpart of ``implicitbvh_tpu/options.py``.  Only 32-bit indices are
+ported so far; ``index_bits=64`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .morton import DefaultMortonAlgorithm, MortonAlgorithm
+
+
+@dataclasses.dataclass(frozen=True)
+class BVHOptions:
+    """Options for building and traversing BVHs.
+
+    - ``index_bits``: width of the user indices (32; 64 is not ported yet).
+    - ``morton``: the Morton encoding algorithm object.
+    - ``capacity_growth``: factor by which the traversal wrappers grow an
+      overflowing buffer before re-running.
+    - ``min_capacity``: smallest contact-buffer capacity.
+    """
+
+    index_bits: int = 32
+    morton: MortonAlgorithm = DefaultMortonAlgorithm(bits=32)
+    capacity_growth: float = 2.0
+    min_capacity: int = 64
+
+    def __post_init__(self):
+        if self.index_bits == 64:
+            raise NotImplementedError(
+                "BVHOptions(index_bits=64) is not ported yet (ROADMAP)")
+        if self.index_bits != 32:
+            raise ValueError("index_bits must be 32 or 64")
+        if self.capacity_growth <= 1.0:
+            raise ValueError("capacity_growth must be > 1")
+        if self.min_capacity <= 0:
+            raise ValueError("min_capacity must be positive")
+
+    @property
+    def index_dtype(self):
+        return torch.int32
+
+
+DEFAULT_OPTIONS = BVHOptions()

@@ -1,0 +1,463 @@
+"""Tile self-contact traversal on its two-phase route.
+
+Counterpart of ``implicitbvh_tpu/traverse/tiles.py``: Morton-sorted leaves
+form tiles of G; a supertile pass and the band-bit kernel
+(``ops/subtile.py``) list the candidate tile pairs as aligned runs of R
+b-tiles; the count kernel (``ops/tile_contact.py``) counts each pair's
+contacts; the pairs with contacts are regrouped and the emit kernel writes
+their contacts as one dense stream; user indices finish the list.
+
+The capacity arithmetic is the JAX package's, copied so the overflow bits
+agree.  The fixed path makes no host sync: every count the kernels need
+(live slots, live steps) stays on the device.  The pair-granularity
+fallback (``pair_cap > 128``, ``capacity % 1024 != 0``, or growth past the
+slot caps) is not ported: it raises ``NotImplementedError`` (ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..build import BVH
+from ..options import DEFAULT_OPTIONS, BVHOptions
+from ..ops.subtile import subtile_band_bits
+from ..ops.tile_contact import tile_group_emit, tile_run_counts
+from ..volumes import BSphere
+from .types import BVHTraversal, TraversalAlgorithm
+
+SS = 32                 # tiles per supertile
+_SENTINEL = (1 << 31) - 1   # sorts after every live key
+
+
+@dataclasses.dataclass(frozen=True)
+class TileTraversal(TraversalAlgorithm):
+    """Tile traversal parameters (the JAX package's ``TileTraversal``).
+
+    - ``tile``: leaves per tile (G).
+    - ``row_cap``: max contacts of one leaf within one other tile.
+    - ``pair_cap``: max contacts within one tile pair.
+    - ``run_r``: aligned b-tile run length (8, 16 or 32).
+    - ``count_w``: run slots per count step sharing one a-tile.
+    - ``emit_w``: b-tiles per emit step.
+    - ``bands``: sub-bands per tile (4, 8 or 16).
+    - ``decode_k``: must be 0 here (the moment-decode route is not ported).
+    """
+
+    tile: int = 128
+    row_cap: int = 4
+    pair_cap: int = 32
+    run_r: int = 8
+    count_w: int = 8
+    emit_w: int = 4
+    bands: int = 4
+    decode_k: int = 0
+
+
+PAIRS_PER_TILE = 36
+SUPERPAIRS_PER_SUPERTILE = 24
+MAX_ROW_CAP = 32
+MAX_PAIR_CAP = 1024
+
+
+def _pair_capacity_for(num_tiles: int) -> int:
+    return max(((num_tiles * PAIRS_PER_TILE + 8191) // 8192) * 8192, 8192)
+
+
+def _step_caps(need: int):
+    """(S_cap, CHUNK) of a step list (the JAX package's rounding)."""
+    CH_MAX = 1 << 14
+    if need <= CH_MAX:
+        s = max(256, -(-need // 256) * 256)
+        return s, s
+    return -(-need // CH_MAX) * CH_MAX, CH_MAX
+
+
+def _run_chunk_cap(W: int, R: int, NB: int) -> int:
+    NW = (R * NB) // 32
+    words = 1 + W * (1 + NW)
+    cap = 700_000 // (4 * words)
+    return min(1 << 13, 1 << (cap.bit_length() - 1))
+
+
+def _grow_capacity(capacity: int, growth: float, quantum: int = 1024) -> int:
+    """Scale a capacity by ``growth``: powers of two up to 1024, multiples
+    of ``quantum`` above.  Always grows."""
+    new = max(int(capacity * growth), capacity + 1)
+    if new <= 1024:
+        return 1 << math.ceil(math.log2(new))
+    return -(-new // quantum) * quantum
+
+
+def _grow_alg(alg: TileTraversal) -> TileTraversal:
+    """4x slot-cap growth under the ceilings."""
+    return dataclasses.replace(
+        alg, row_cap=min(4 * alg.row_cap, MAX_ROW_CAP),
+        pair_cap=min(4 * alg.pair_cap, MAX_PAIR_CAP))
+
+
+def _merge_cached_alg(alg: TileTraversal, cache) -> TileTraversal:
+    """Adopt a previous result's (possibly grown) slot caps."""
+    prev = getattr(cache, "tile_alg", None) if cache is not None else None
+    if isinstance(prev, TileTraversal) and prev.tile == alg.tile:
+        return dataclasses.replace(
+            alg, row_cap=max(alg.row_cap, prev.row_cap),
+            pair_cap=max(alg.pair_cap, prev.pair_cap))
+    return alg
+
+
+def _scatter_drop(size, dst, values, fill):
+    """``full(size, fill)`` with ``values`` written at ``dst``; targets
+    outside ``[0, size)`` are dropped."""
+    dst = torch.where((dst >= 0) & (dst < size), dst, size).long()
+    out = torch.full((size + 1,), fill, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_(0, dst, values)[:size]
+
+
+def _compact_flat(flat, values, cap, pad=0):
+    """Compact ``values`` where ``flat`` into ``(cap,)``; (out, count)."""
+    v = flat.int()
+    pos = torch.cumsum(v, 0) - v
+    out = _scatter_drop(cap, torch.where(flat, pos, cap), values, pad)
+    return out, v.sum(dtype=torch.int32)
+
+
+def _popcount(x):
+    x = x.long() & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def _tiled_fields(bvh: BVH, G: int, NB: int = 4):
+    """Leaf fields tiled to ``(F, T, G)`` (NaN padding: every predicate on
+    a padded leaf is false), tile bounds ``(6, T)`` and sub-band bounds
+    ``(6, T, NB)`` (rows lo0, lo1, lo2, up0, up1, up2; the finite ``big``
+    padding never overlaps and keeps partial bands exact)."""
+    vol = bvh.leaves.volume
+    n = bvh.num_leaves
+    T = -(-n // G)
+    pad = T * G - n
+    big = torch.finfo(vol.dtype).max
+    if isinstance(vol, BSphere):
+        raw = torch.stack([*vol.xs, vol.r])
+        blo = torch.stack([x - vol.r for x in vol.xs])
+        bup = torch.stack([x + vol.r for x in vol.xs])
+        sphere = True
+    else:
+        raw = torch.stack([*vol.los, *vol.ups])
+        blo, bup = torch.stack(vol.los), torch.stack(vol.ups)
+        sphere = False
+    fields = torch.nn.functional.pad(raw, (0, pad), value=float("nan"))
+    fields = fields.view(-1, T, G)
+    blo = torch.nn.functional.pad(blo, (0, pad), value=big).view(3, T, G)
+    bup = torch.nn.functional.pad(bup, (0, pad), value=-big).view(3, T, G)
+    tiles = torch.cat([blo.amin(2), bup.amax(2)])
+    sub = torch.cat([blo.view(3, T, NB, G // NB).amin(3),
+                     bup.view(3, T, NB, G // NB).amax(3)])
+    return fields, sphere, tiles, sub, T
+
+
+def _phase1_superpairs(tiles, P_cap: int, sp_round: int = 16):
+    """Supertile-vs-supertile AABB overlap (upper triangle) compacted to a
+    superpair list; returns ``(si, sj, nsp, overflow)``."""
+    T = tiles.shape[1]
+    S = -(-T // SS)
+    pad = S * SS - T
+    inf = float("inf")
+    lo = torch.nn.functional.pad(tiles[:3], (0, pad), value=inf)
+    up = torch.nn.functional.pad(tiles[3:], (0, pad), value=-inf)
+    lo = lo.view(3, S, SS).amin(2)
+    up = up.view(3, S, SS).amax(2)
+    ov = torch.ones((S, S), dtype=torch.bool, device=tiles.device)
+    for k in range(3):
+        ov &= (up[k][:, None] >= lo[k][None, :]) & \
+              (lo[k][:, None] <= up[k][None, :])
+    ov &= torch.ones_like(ov).triu()
+    SP_cap = max(S * SUPERPAIRS_PER_SUPERTILE, 64, P_cap // 64)
+    SP_cap = -(-SP_cap // sp_round) * sp_round
+    kA = torch.arange(S * S, dtype=torch.int32, device=tiles.device)
+    spacked, nsp = _compact_flat(ov.reshape(-1), kA, SP_cap)
+    return spacked // S, spacked % S, nsp, nsp > SP_cap
+
+
+def _leader_group(ti_flat, valid, payloads, pads, W: int, S_cap: int):
+    """Pack the valid entries of a ti-sorted list W per step, so a step
+    shares one a-tile.  Returns ``(a_idx (S_cap,), grouped payloads
+    (S_cap*W,) each, nsteps)``."""
+    v = valid.int()
+    cv_ex = torch.cumsum(v, 0) - v
+    prev = torch.cat([ti_flat.new_full((1,), -1), ti_flat[:-1]])
+    run_base = torch.cummax(
+        torch.where(ti_flat != prev, cv_ex, -1), 0).values
+    posr = cv_ex - run_base
+    leader = valid & (posr % W == 0)
+    lead_cum = torch.cumsum(leader.int(), 0)
+    gid = lead_cum - 1
+    nsteps = lead_cum[-1].int()
+    a_idx = _scatter_drop(S_cap, torch.where(leader, gid, S_cap),
+                          ti_flat.int(), 0)
+    b_dst = torch.where(valid, gid * W + posr % W, S_cap * W)
+    grouped = tuple(_scatter_drop(S_cap * W, b_dst, p.int(), pad)
+                    for p, pad in zip(payloads, pads))
+    return a_idx, grouped, nsteps
+
+
+def _runs_from_bits(bits, si, sj, G: int, W: int, S_cap: int, R: int,
+                    pad_run: int, NB: int = 4):
+    """(SP_cap, 32, 32) band bits -> sorted, W-grouped aligned-run lists.
+
+    Returns ``(a_idx, run_idx, bm_words (NW, S_cap*W), nsteps,
+    num_checks, overflow)``."""
+    SP_cap = bits.shape[0]
+    NG = SS // R
+    TPW = 32 // NB
+    NW = R // TPW
+    dev = bits.device
+    shifts = NB * torch.arange(TPW, device=dev)
+    w64 = (bits.view(SP_cap, SS, NG, NW, TPW).long() << shifts).sum(-1)
+    words = (w64 - ((w64 >> 31) & 1) * (1 << 32)).int()   # int32 wrap
+    num_checks = (_popcount(bits).sum().to(torch.float32)
+                  * float((G // NB) * G))
+
+    i_io = torch.arange(SS, device=dev).view(1, SS, 1)
+    g_io = torch.arange(NG, device=dev).view(1, 1, NG)
+    key = ((si.view(-1, 1, 1) * SS + i_io) << 13) | (sj.view(-1, 1, 1) * NG
+                                                     + g_io)
+    wflat = words.view(-1, NW)
+    live = (wflat != 0).any(1)
+    run_cap = max(min(S_cap * W, 16384), S_cap * W // 4)
+    run_cap = min(run_cap, live.shape[0])
+    nruns = live.sum()
+    overflow = nruns > run_cap
+    # dead runs take the sentinel key and sort last; live keys are unique
+    key_s, perm = torch.sort(torch.where(live, key.reshape(-1), _SENTINEL))
+    key_i = key_s[:run_cap]
+    words_s = wflat[perm[:run_cap]]
+    ti_r = (key_i >> 13) & 0xFFFF
+    run_r = key_i & 0x1FFF
+    rvalid = torch.arange(run_cap, device=dev) < nruns
+    a_idx, grouped, nsteps = _leader_group(
+        ti_r, rvalid, (run_r, *words_s.unbind(1)), (pad_run,) + (0,) * NW,
+        W, S_cap)
+    bm_words = torch.stack(grouped[1:])
+    overflow |= nsteps > S_cap
+    return a_idx, grouped[0], bm_words, nsteps, num_checks, overflow
+
+
+def _phase1_tile_runs(tiles, sub, G: int, P_cap: int, W: int, S_cap: int,
+                      R: int, pad_run: int, NB: int = 4):
+    """Superpairs -> band bits -> W-grouped run lists for the count kernel.
+
+    Returns ``(a_idx, run_idx, bm_words, nsteps, num_checks, overflow)``."""
+    if R not in (8, 16, 32) or G % NB:
+        raise ValueError(f"need run_r in (8, 16, 32) and tile % bands == 0")
+    si, sj, nsp, overflow = _phase1_superpairs(tiles, P_cap)
+    SP_cap = si.shape[0]
+    bits = subtile_band_bits(sub, tiles, si, sj,
+                             nsp.clamp(max=SP_cap).reshape(1), triangle=True)
+    *out, ov2 = _runs_from_bits(bits, si, sj, G, W, S_cap, R, pad_run, NB)
+    return (*out, overflow | ov2)
+
+
+def _regroup_emit_runs(a_idx, run_idx, bm_words, counts, colmax, W2: int,
+                       S2_cap: int, E2_cap: int, T_pad: int, R: int,
+                       NB: int = 4):
+    """Regroup the tile pairs with contacts for the emit kernel (payload
+    ``tj | band << 16 | cnt << 20 | okc << 28``).  Returns ``(a_idx2,
+    b_idx2, nsteps2, over2)``; ``over2``: more live runs than E2_cap."""
+    SW = run_idx.shape[0]
+    Win = SW // a_idx.shape[0]
+    dev = counts.device
+    rc = counts.view(SW, R)
+    run_live = rc.amax(1) > 0
+    nlive = run_live.sum()
+    E2c = min(E2_cap, SW)
+    over2 = nlive > E2c
+    slot = torch.arange(SW, device=dev)
+    slot_r = torch.sort(torch.where(run_live, slot, _SENTINEL)).values[:E2c]
+    slot_c = torch.where(slot_r == _SENTINEL, 0, slot_r)
+    ti_r = a_idx[slot_c // Win]
+    base_r = run_idx[slot_c] & 0xFFFF
+    rc_r = rc[slot_c].clamp(max=255)                     # 8-bit payload field
+    ok_r = (colmax.view(SW, R)[slot_c] <= 2).int()
+    E = E2c * R
+    el = torch.arange(E, device=dev)
+    t = el % R
+    TPW = 32 // NB
+    wsel = bm_words[:, slot_c].repeat_interleave(R, 1)[t // TPW, el]
+    bits_nb = (wsel >> (NB * (t % TPW))) & ((1 << NB) - 1)
+    gsz = NB // 4        # fold NB fine bands to the emit kernel's 4
+    band4 = torch.zeros_like(bits_nb)
+    for c in range(4):
+        live_c = ((bits_nb >> (c * gsz)) & ((1 << gsz) - 1)) != 0
+        band4 |= live_c.long() << c
+    tj = base_r.repeat_interleave(R) * R + t
+    cnt = rc_r.reshape(-1)
+    valid = (cnt > 0) & (el < nlive * R)
+    tj_c = torch.where(valid, tj, T_pad)
+    payload = tj_c | (band4 << 16) | (cnt << 20) | (ok_r.reshape(-1) << 28)
+    a_idx2, (b_idx2,), nsteps2 = _leader_group(
+        ti_r.repeat_interleave(R), valid, (payload,), (T_pad,), W2, S2_cap)
+    return a_idx2, b_idx2, nsteps2, over2
+
+
+def _finish_contacts(out_gi, out_gj, total, leaf_index, narrow_mask_fn,
+                     capacity: int):
+    """Map a dense stream of global sorted positions to the final sorted
+    ``(min, max)`` user-index contact list, with the optional ``narrow``
+    filter (re-compacted).  Returns ``(total, contacts (capacity, 2))``."""
+    n = leaf_index.shape[0]
+    lane = torch.arange(capacity, device=leaf_index.device)
+    out_gi = out_gi.clamp(0, n - 1).long()
+    out_gj = out_gj.clamp(0, n - 1).long()
+    ui, uj = leaf_index[out_gi], leaf_index[out_gj]
+    in_range = lane < total
+    if narrow_mask_fn is not None:
+        keep = in_range & narrow_mask_fn(out_gi, out_gj)
+        ui, total = _compact_flat(keep, ui, capacity)
+        uj, _ = _compact_flat(keep, uj, capacity)
+        in_range = lane < total
+    a = torch.where(in_range, torch.minimum(ui, uj), 0)
+    b = torch.where(in_range, torch.maximum(ui, uj), 0)
+    return total, torch.stack([a, b], dim=-1)
+
+
+def _merge_streams(parts, capacity: int):
+    """Concatenate per-part dense streams ``(gi, gj, total)`` into one
+    (capacity,) stream and its grand total (one part passes through)."""
+    if len(parts) == 1:
+        gi, gj, tot = parts[0]
+        return gi.int(), gj.int(), tot
+    C = parts[0][0].shape[0]
+    gis = torch.cat([p[0] for p in parts])
+    gjs = torch.cat([p[1] for p in parts])
+    k = torch.arange(capacity, device=gis.device)
+    flat = k
+    total = torch.zeros((), dtype=torch.int32, device=gis.device)
+    for c, p in enumerate(parts):
+        if c:
+            flat = torch.where(k >= total, c * C + (k - total), flat)
+        total = total + p[2]
+    flat = flat.clamp(0, gis.shape[0] - 1)
+    in_range = k < total
+    return (torch.where(in_range, gis[flat].int(), 0),
+            torch.where(in_range, gjs[flat].int(), 0), total)
+
+
+def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
+                         alg: Optional[TileTraversal] = None,
+                         pair_capacity: Optional[int] = None, narrow=None):
+    """Fixed-capacity tile self-contact traversal, with no host sync.
+
+    Returns ``(total, contacts, overflow, num_checks)`` as tensors on the
+    BVH's device: the contact count, a ``(capacity, 2)`` int32 list of
+    sorted 1-based ``(min, max)`` user-index pairs, the overflow bitmask
+    (bit 0: a buffer capacity, bit 1: a slot cap; results are incomplete
+    when it is set) and the number of leaf tests of live bands.
+    """
+    alg = alg or TileTraversal()
+    G = alg.tile
+    NB = alg.bands
+    if not (alg.pair_cap <= 128 and capacity % 1024 == 0):
+        raise NotImplementedError(
+            "pair_cap > 128 or capacity % 1024 != 0 takes the "
+            "pair-granularity fallback, which is not ported (ROADMAP A12)")
+    if alg.decode_k:
+        raise NotImplementedError(
+            "the moment-decode emit route (decode_k > 0) is not ported "
+            "(ROADMAP A9)")
+    fields, sphere, tiles, sub, T = _tiled_fields(bvh, G, NB)
+    if T >= 1 << 16:
+        raise ValueError("tile count exceeds 65536; raise the tile size")
+    if pair_capacity is None:
+        pair_capacity = _pair_capacity_for(T)
+    narrow_fn = None
+    if narrow is not None:
+        leaves = bvh.leaves
+
+        def narrow_fn(gi, gj):
+            return narrow(leaves[gi], leaves[gj])
+
+    W, R = alg.count_w, alg.run_r
+    S_cap, chunk = _step_caps(pair_capacity // W + T)
+    ch_cap = _run_chunk_cap(W, R, NB)
+    if chunk > ch_cap:
+        S_cap = -(-S_cap // ch_cap) * ch_cap
+    pad_run = -(-T // R)
+    a_idx, run_idx, bm_words, nsteps, num_checks, pair_overflow = \
+        _phase1_tile_runs(tiles, sub, G, pair_capacity, W, S_cap, R,
+                          pad_run, NB)
+    mask_kind = "sphere" if sphere else "box"
+    counts, colmax = tile_run_counts(
+        a_idx, run_idx, bm_words, nsteps.reshape(1), fields,
+        mask_kind=mask_kind, R=R, NB=NB, dedup=True)
+    slot_overflow = (counts > alg.pair_cap).any()
+
+    W2 = alg.emit_w
+    S2_cap, _ = _step_caps(T + capacity // (8 * W2))
+    E2_cap = max(4096, capacity // 8)
+    a_idx2, b_idx2, nsteps2, over2 = _regroup_emit_runs(
+        a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T, R,
+        NB)
+    gi, gj, tot, flags = tile_group_emit(
+        a_idx2, b_idx2, nsteps2.reshape(1), fields, mask_kind=mask_kind,
+        ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=True, CAP=capacity)
+    cap_overflow = (nsteps2 > S2_cap) | over2 | ((flags & 1) > 0)
+    slot_overflow = slot_overflow | ((flags & 2) > 0)
+    gi, gj, total = _merge_streams([(gi, gj, tot)], capacity)
+    total, contacts = _finish_contacts(gi, gj, total, bvh.leaves.index,
+                                       narrow_fn, capacity)
+    overflow = ((pair_overflow | cap_overflow | (total > capacity)).int()
+                | (slot_overflow.int() << 1))
+    return total, contacts, overflow, num_checks
+
+
+def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
+                   narrow=None, cache: Optional[BVHTraversal] = None,
+                   options: BVHOptions = DEFAULT_OPTIONS) -> BVHTraversal:
+    """Tile self-contact with overflow-driven growth: re-runs
+    :func:`traverse_tiles_fixed` with grown capacities (bit 0) or slot caps
+    (bit 1) until nothing overflows.  ``cache`` (a previous result) starts
+    from its capacities.  Growth past the two-phase route's limits raises
+    ``NotImplementedError`` (ROADMAP A12)."""
+    alg = _merge_cached_alg(alg or TileTraversal(), cache)
+    dev = bvh.device
+    if bvh.tree.real_nodes <= 1:
+        z = torch.zeros((0,), dtype=torch.int32, device=dev)
+        return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z)
+    if cache is not None and cache.cache1.dim() == 2 \
+            and cache.cache1.shape[0] > 0:
+        capacity = cache.cache1.shape[0]
+    else:
+        capacity = max(options.min_capacity, bvh.num_leaves)
+        capacity = 1 << math.ceil(math.log2(capacity))
+    if cache is not None and cache.pair_capacity > 0:
+        pair_capacity = cache.pair_capacity
+    else:
+        pair_capacity = _pair_capacity_for(-(-bvh.num_leaves // alg.tile))
+    for _ in range(8):
+        total, contacts, overflow, num_checks = traverse_tiles_fixed(
+            bvh, capacity, alg=alg, pair_capacity=pair_capacity,
+            narrow=narrow)
+        ov = int(overflow)
+        if ov == 0:
+            return BVHTraversal(
+                num_contacts=int(total), cache1=contacts,
+                cache2=torch.zeros((0,), dtype=torch.int32, device=dev),
+                num_checks=int(num_checks), pair_capacity=pair_capacity,
+                tile_alg=alg)
+        if ov & 1:
+            capacity = _grow_capacity(capacity, options.capacity_growth)
+            pair_capacity = _grow_capacity(
+                pair_capacity, options.capacity_growth, 8192)
+        if ov & 2:
+            alg = _grow_alg(alg)
+    raise NotImplementedError(
+        "the scene is too dense for the tile engine's slot caps; the LVT "
+        "walk fallback is not ported (ROADMAP A12)")

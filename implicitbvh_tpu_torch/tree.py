@@ -1,0 +1,96 @@
+"""Implicit binary tree index algebra.
+
+Counterpart of ``implicitbvh_tpu/tree.py:38-155``: the whole tree shape
+(levels, virtual node counts, per-level offsets, skips) is plain Python
+integer math; only ``compute_skips`` makes a tensor.
+
+Nodes are labelled 1-based in BFS order over a perfect binary tree; level 1
+is the root and level ``levels`` the leaf level.  Leaves beyond
+``real_leaves`` are virtual and never stored; real nodes are stored
+contiguously per level, and ``skips`` gives the number of virtual nodes
+before each level.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .utils import ilog2_static, resolve_device
+
+
+def _popcount(x: int) -> int:
+    return bin(x).count("1")
+
+
+@dataclasses.dataclass(frozen=True)
+class ImplicitTree:
+    """Static shape of an implicit BVH over ``real_leaves`` elements."""
+
+    levels: int
+    real_leaves: int
+    real_nodes: int
+    virtual_leaves: int
+    virtual_nodes: int
+
+    @classmethod
+    def from_num_leaves(cls, num_leaves: int) -> "ImplicitTree":
+        if num_leaves < 1:
+            raise ValueError("must have at least one geometry!")
+        lr = int(num_leaves)
+        levels = ilog2_static(lr, round_up=True) + 1
+        lv = (1 << (levels - 1)) - lr
+        nv = 2 * lv - _popcount(lv)
+        nr = 2 * lr - 1 + _popcount(lv)
+        return cls(levels=levels, real_leaves=lr, real_nodes=nr,
+                   virtual_leaves=lv, virtual_nodes=nv)
+
+    def virtual_nodes_before_level(self, level: int) -> int:
+        """Number of virtual nodes on the levels strictly above ``level``."""
+        vnl = self.virtual_leaves >> (self.levels - (level - 1))
+        return 2 * vnl - _popcount(vnl)
+
+    def memory_index(self, implicit_index: int) -> int:
+        """Memory index (1-based) of the real node at ``implicit_index``."""
+        if not (1 <= implicit_index <= (1 << self.levels) - 1):
+            raise IndexError(implicit_index)
+        level = ilog2_static(implicit_index) + 1
+        return implicit_index - self.virtual_nodes_before_level(level)
+
+    def level_nodes(self, level: int) -> int:
+        """Number of real nodes at ``level``."""
+        return (1 << (level - 1)) - (self.virtual_leaves >> (self.levels - level))
+
+    def level_indices(self, level: int):
+        """(start, stop) 1-based inclusive memory-index range of ``level``."""
+        if not (1 <= level <= self.levels):
+            raise IndexError(level)
+        start = self.memory_index(1 << (level - 1))
+        return start, start + self.level_nodes(level) - 1
+
+    def isvirtual(self, implicit_index: int) -> bool:
+        if not (1 <= implicit_index <= (1 << self.levels) - 1):
+            raise IndexError(implicit_index)
+        level = ilog2_static(implicit_index) + 1
+        level_first = 1 << (level - 1)
+        return implicit_index - level_first + 1 > self.level_nodes(level)
+
+    def skips_np(self, dtype=np.int32) -> np.ndarray:
+        """Per-level virtual-node skip counts: ``skips[l - 1]`` equals
+        ``virtual_nodes_before_level(l)``."""
+        return np.array(
+            [self.virtual_nodes_before_level(lv)
+             for lv in range(1, self.levels + 1)], dtype=dtype)
+
+    @property
+    def num_nodes(self) -> int:
+        """Number of stored (non-leaf) real nodes."""
+        return self.real_nodes - self.real_leaves
+
+
+def compute_skips(tree: ImplicitTree, dtype=torch.int32, device=None):
+    """Tensor of per-level skips."""
+    return torch.as_tensor(tree.skips_np(np.int64), dtype=dtype,
+                           device=resolve_device(device))

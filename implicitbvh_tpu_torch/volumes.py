@@ -1,0 +1,173 @@
+"""Bounding volumes: coordinate-tuple SoA bounding spheres and boxes.
+
+Counterpart of ``implicitbvh_tpu/volumes.py``.  The public layout is the
+JAX package's: each coordinate is its own ``(N,)`` tensor (a 3-tuple), and
+constructors also accept ``(N, 3)`` arrays.  Ported so far: the two volume
+types, ``center_coords``, ``bbox_of_bsphere`` and ``bsphere_from_triangles``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+import torch
+
+from .utils import as_tensor
+
+Coords = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def as_coords(x, device=None) -> Coords:
+    """Normalise an ``(..., 3)`` array or a 3-sequence of arrays to a
+    coordinate 3-tuple of tensors (device rules as in ``utils.as_tensor``)."""
+    if isinstance(x, (tuple, list)):
+        if len(x) != 3:
+            raise ValueError(
+                f"coordinate tuple must have 3 entries, got {len(x)}")
+        return tuple(as_tensor(v, device=device) for v in x)
+    x = as_tensor(x, device=device)
+    if x.shape[-1] != 3:
+        raise ValueError(f"expected trailing dimension 3, got shape {x.shape}")
+    return (x[..., 0], x[..., 1], x[..., 2])
+
+
+def dot3(a: Coords, b: Coords):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root.  PyTorch's vectorised CPU ``sqrt`` for
+    float32 may miss by one ulp; the float64 root rounded back to float32 is
+    exact (53 >= 2 * 24 + 2 bits), as IEEE ``sqrtf`` on the card is."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+def dist3(a: Coords, b: Coords):
+    d0, d1, d2 = a[0] - b[0], a[1] - b[1], a[2] - b[2]
+    return sqrt_rn(d0 * d0 + d1 * d1 + d2 * d2)
+
+
+def _map3(f, *cs):
+    return tuple(f(*[c[k] for c in cs]) for k in range(3))
+
+
+@dataclasses.dataclass(frozen=True)
+class BSphere:
+    """Bounding spheres: centre coordinate tuple ``xs`` and radii ``r``."""
+
+    xs: Coords
+    r: torch.Tensor
+
+    def __init__(self, xs, r, device=None):
+        xs = as_coords(xs, device)
+        object.__setattr__(self, "xs", xs)
+        object.__setattr__(self, "r", as_tensor(r, device=xs[0].device))
+
+    @property
+    def dtype(self):
+        return self.r.dtype
+
+    @property
+    def device(self):
+        return self.r.device
+
+    @property
+    def batch_shape(self):
+        return tuple(self.r.shape)
+
+    def __getitem__(self, idx):
+        return BSphere(tuple(c[idx] for c in self.xs), self.r[idx])
+
+
+@dataclasses.dataclass(frozen=True)
+class BBox:
+    """Axis-aligned boxes: lower and upper corner coordinate tuples."""
+
+    los: Coords
+    ups: Coords
+
+    def __init__(self, lo, up, device=None):
+        los = as_coords(lo, device)
+        object.__setattr__(self, "los", los)
+        object.__setattr__(self, "ups", as_coords(up, los[0].device))
+
+    @property
+    def dtype(self):
+        return self.los[0].dtype
+
+    @property
+    def device(self):
+        return self.los[0].device
+
+    @property
+    def batch_shape(self):
+        return tuple(self.los[0].shape)
+
+    def __getitem__(self, idx):
+        return BBox(tuple(c[idx] for c in self.los),
+                    tuple(c[idx] for c in self.ups))
+
+
+Volume = Union[BSphere, BBox]
+
+
+def center_coords(v: Volume) -> Coords:
+    """Geometric centre coordinate tuple."""
+    if isinstance(v, BSphere):
+        return v.xs
+    return _map3(lambda lo, up: 0.5 * (lo + up), v.los, v.ups)
+
+
+def bbox_of_bsphere(a: BSphere) -> BBox:
+    """Sphere -> enclosing box."""
+    return BBox(tuple(c - a.r for c in a.xs), tuple(c + a.r for c in a.xs))
+
+
+def bsphere_from_triangles(p1, p2, p3, device=None) -> BSphere:
+    """Minimal bounding spheres of triangles given three ``(N, 3)`` vertex
+    arrays or coordinate tuples.
+
+    The Ericson circumsphere with its collinear and obtuse cases, selected
+    in the JAX package's order with the same float operation order, so the
+    spheres agree bit for bit (``implicitbvh_tpu/volumes.py:163-212``).
+    """
+    a = as_coords(p1, device)
+    b = as_coords(p2, a[0].device)
+    c = as_coords(p3, a[0].device)
+    ab = _map3(lambda x, y: y - x, a, b)
+    ac = _map3(lambda x, y: y - x, a, c)
+    abab = dot3(ab, ab)
+    abac = dot3(ab, ac)
+    acac = dot3(ac, ac)
+    d = 2.0 * (abab * acac - abac * abac)
+    flat = d.abs() <= torch.finfo(d.dtype).eps
+
+    # collinear: centre of the three points' AABB
+    lo = _map3(lambda x, y, z: torch.minimum(torch.minimum(x, y), z), a, b, c)
+    up = _map3(lambda x, y, z: torch.maximum(torch.maximum(x, y), z), a, b, c)
+    c_lin = _map3(lambda l, u: 0.5 * (l + u), lo, up)
+    r_lin = dist3(c_lin, up)
+
+    d_safe = torch.where(flat, torch.ones_like(d), d)
+    s = (abab * acac - acac * abac) / d_safe
+    t = (acac * abab - abab * abac) / d_safe
+
+    c_s0 = _map3(lambda x, y: 0.5 * (x + y), a, c)
+    c_t0 = _map3(lambda x, y: 0.5 * (x + y), a, b)
+    c_st = _map3(lambda x, y: 0.5 * (x + y), b, c)
+    c_in = tuple(a[k] + s * ab[k] + t * ac[k] for k in range(3))
+
+    cases = (  # later entries take precedence, as in the JAX selection
+        (s + t >= 1.0, c_st, dist3(c_st, b)),
+        (t <= 0.0, c_t0, dist3(c_t0, a)),
+        (s <= 0.0, c_s0, dist3(c_s0, a)),
+        (flat, c_lin, r_lin),
+    )
+    cen, rad = c_in, dist3(c_in, a)
+    for cond, cc, rc in cases:
+        cen = _map3(lambda x, y: torch.where(cond, y, x), cen, cc)
+        rad = torch.where(cond, rc, rad)
+    return BSphere(cen, rad)
