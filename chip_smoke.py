@@ -5,27 +5,39 @@ Run from the repository root on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``implicitbvh_tpu_torch/csrc/`` into
-``build/kernels/`` (one ``nvcc`` per source, all at once), then:
+It builds the CUDA kernels from ``implicitbvh_tpu_torch/csrc/`` into
+``build/kernels/`` (one ``nvcc`` per source, all at once), then drives both
+routes of tile self-contact: the two-phase route (kernels B1 band bits, B2
+counts, B3 emit) and the pair-granularity fallback (B1, B5 compaction, B4
+grouped slots), which small capacities and grown slot caps take.  B6
+(per-pair slots of a packed pair list) is on no path and is held against
+its plain version only.
 
 1. runs each kernel and its plain PyTorch version on the same inputs on the
-   card -- the inputs its stage gets on a small scene (tile 32) and on the
-   1M-triangle bench scene -- and requires exact equality (the predicates
-   are comparisons of identically rounded float32 values, the outputs are
-   integers);
-2. drives the main path at the bench scene: 2^20 triangles ->
+   card -- the inputs its stage gets on a small scene (tile 32) on both
+   routes -- and requires exact equality (the predicates are comparisons of
+   identically rounded float32 values, the outputs are integers; slot
+   lanes past a pair's count are undefined and not compared);
+2. drives the two-phase route at the bench scene: 2^20 triangles ->
    ``bsphere_from_triangles`` -> ``build`` -> ``traverse_tiles_fixed``
    (capacity 131072, ``TileTraversal(row_cap=4, pair_cap=32)``) with every
    launch count set to 0 just before and read just after; it requires no
-   overflow, every pair to satisfy the sphere predicate, no duplicate pair
-   and at least one launch of each kernel;
-3. runs a 65,536-triangle scene through the path on the card and on the CPU
-   (plain versions) and requires identical contacts, total, overflow and
-   ``num_checks``;
-4. times (CUDA events, median of 7 after a warm-up) the 1M step end to end
-   and by stage, each kernel at its 1M inputs and each plain version at the
-   same inputs, and profiles the step (device time by kernel, device busy
-   share).
+   overflow, every pair to satisfy the sphere predicate, no duplicate pair,
+   no host sync and at least one launch of B1, B2 and B3;
+3. drives the fallback on the same BVH (``TileTraversal(row_cap=32,
+   pair_cap=512)``, the caps two slot-cap growths reach) the same way; it
+   requires what phase 2 does, launches of B1, B4 and B5 and none of B2
+   and B3, and the contact set and total of phase 2;
+4. holds each kernel against its plain version at the bench scene's
+   inputs of its route;
+5. runs a 65,536-triangle scene through both routes on the card and on the
+   CPU (plain versions) and requires identical contacts, total, overflow
+   and ``num_checks``; runs the README demo on the card through
+   ``traverse_tiles`` with default options (capacity 64, so the fallback);
+6. times (CUDA events, median of 7 after a warm-up) each route's 1M step
+   end to end and by stage, with its host enqueue time and a profile
+   (device time by kernel, device busy share), and each kernel at its 1M
+   inputs beside its plain version and, for B5, ``torch.masked_select``.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -46,6 +58,8 @@ N_BENCH = 1 << 20          # triangles of the bench scene
 N_CROSS = 1 << 16          # triangles of the card-vs-CPU scene
 N_SMALL = 4096             # triangles of the small kernel-check scene
 TPU_BENCH_CONTACTS = 57868  # the JAX package's total on this scene (TPU v5e)
+TWO_PHASE = dict(row_cap=4, pair_cap=32)
+FALLBACK = dict(row_cap=32, pair_cap=512)   # pair_cap > 128: the fallback
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -74,7 +88,7 @@ def card_line():
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
-def profile_step(torch, run_step, step_ms, card, steps=3):
+def profile_step(torch, run_step, step_ms, route, card, steps=3):
     """Device time by kernel over a few steps (torch.profiler) and the
     device's busy share of the step."""
     from torch.autograd import DeviceType
@@ -95,10 +109,11 @@ def profile_step(torch, run_step, step_ms, card, steps=3):
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and dev_us(e) > 0]
     if not kern:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"profile, {route}: the profiler recorded no device time "
+            "(not measured)")
         return
     busy = sum(dev_us(e) for e in kern) / steps / 1e3
-    log(f"profile: device busy {busy:.4f} ms per step, "
+    log(f"profile, {route}: device busy {busy:.4f} ms per step, "
         f"{100 * busy / step_ms:.1f}% of the {step_ms:.4f} ms step, "
         f"{sum(e.count for e in kern) // steps} device ops per step [{card}]")
     for e in sorted(kern, key=dev_us, reverse=True)[:16]:
@@ -111,7 +126,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    import implicitbvh_tpu_torch as ib
+    try:
+        import implicitbvh_tpu_torch as ib
+    except ImportError as e:
+        print(f"chip_smoke: run it from the repository's root ({e})",
+              file=sys.stderr)
+        return 2
     from implicitbvh_tpu_torch import ops
     from implicitbvh_tpu_torch.ops import _build
     from implicitbvh_tpu_torch.traverse import tiles
@@ -144,13 +164,31 @@ def main() -> int:
             ops.tile_group_emit, ops.tile_group_emit_plain,
             "implicitbvh_tpu_torch/csrc/group_emit.cu",
             "implicitbvh_tpu/ops/tile_contact.py:1109"),
+        "tile_group_contacts": (
+            ops.tile_group_contacts, ops.tile_group_contacts_plain,
+            "implicitbvh_tpu_torch/csrc/group_contacts.cu",
+            "implicitbvh_tpu/ops/tile_contact.py:1286"),
+        "tile_compact": (
+            ops.tile_compact, ops.tile_compact_plain,
+            "implicitbvh_tpu_torch/csrc/compact.cu",
+            "implicitbvh_tpu/ops/compaction.py:106"),
+        "tile_pair_contacts": (
+            ops.tile_pair_contacts, ops.tile_pair_contacts_plain,
+            "implicitbvh_tpu_torch/csrc/group_contacts.cu",
+            "implicitbvh_tpu/ops/tile_contact.py:333"),
     }
+    two_phase_kernels = ("subtile_band_bits", "tile_run_counts",
+                         "tile_group_emit")
+    fallback_kernels = ("subtile_band_bits", "tile_compact",
+                        "tile_group_contacts")
+    # the wrappers the traversal calls by name (B6 is on no path)
+    on_path = [n for n in kernels if hasattr(tiles, n)]
 
     @contextlib.contextmanager
     def recorded_inputs():
         """Record the arguments each kernel wrapper gets from the path."""
         seen = {}
-        saved = {name: getattr(tiles, name) for name in kernels}
+        saved = {name: getattr(tiles, name) for name in on_path}
 
         def recorder(name, fn):
             def call(*args, **kw):
@@ -174,99 +212,201 @@ def main() -> int:
     def step(p1, p2, p3, capacity, alg):
         spheres = ib.bsphere_from_triangles(p1, p2, p3)
         bvh = ib.build(spheres)
-        return spheres, ib.traverse_tiles_fixed(bvh, capacity, alg=alg)
+        return spheres, bvh, ib.traverse_tiles_fixed(bvh, capacity, alg=alg)
 
-    def outputs_of(name, result):
+    def pair_list(bvh, alg):
+        """B6's inputs: the fallback phase 1's packed pair list of ``bvh``
+        at its pair capacity."""
+        fields, sphere, tl, sub, T = tiles._tiled_fields(bvh, alg.tile,
+                                                         alg.bands)
+        packed, _, npairs = tiles._phase1_tile_pairs(
+            tl, sub, tiles._pair_capacity_for(T))
+        return ((packed, npairs.reshape(1), fields),
+                dict(mask_kind="sphere" if sphere else "box",
+                     ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=True))
+
+    def outputs_of(name, got, want, kw):
+        """The tensors of a kernel's and its plain version's results that
+        must be equal."""
         if name == "tile_group_emit":  # contacts compared as a sorted set
-            gi, gj, total, flags = result
-            n = int(total.clamp(max=gi.shape[0]))
-            pairs = (gi[:n].long() << 32) | gj[:n].long()
-            return [pairs.sort().values, total.reshape(1), flags.reshape(1)]
-        return list(result) if isinstance(result, tuple) else [result]
+            def norm(result):
+                gi, gj, total, flags = result
+                n = int(total.clamp(max=gi.shape[0]))
+                pairs = (gi[:n].long() << 32) | gj[:n].long()
+                return [pairs.sort().values, total.reshape(1),
+                        flags.reshape(1)]
+            return norm(got), norm(want)
+        if name in ("tile_group_contacts", "tile_pair_contacts"):
+            # counts and overflow, and every lane below a pair's count and
+            # CAP_PAIR (-1 where a row over ROW_CAP left a gap)
+            gi, gj, c, o = got
+            pgi, pgj, pc, po = want
+            C = kw["CAP_PAIR"]
+            below = torch.arange(C, device=pc.device)[None, :] < \
+                pc.clamp(max=C)[:, None]
+            return ([c, o.reshape(1), gi[below], gj[below]],
+                    [pc, po.reshape(1), pgi[below], pgj[below]])
+        if name == "tile_compact":
+            return ([*got[0], got[1], got[2].reshape(1)],
+                    [*want[0], want[1], want[2].reshape(1)])
+        return ([got] if torch.is_tensor(got) else list(got),
+                [want] if torch.is_tensor(want) else list(want))
 
-    def check_kernels(seen, label):
-        errs = {}
-        for name, (wrapper, plain, _, _) in kernels.items():
-            args, kw = seen[name]
-            got = outputs_of(name, wrapper(*args, **kw))
-            want = outputs_of(name, plain(*args, **kw))
-            torch.cuda.synchronize()
-            err = 0
-            for g, w in zip(got, want):
-                if g.shape != w.shape or not torch.equal(g, w):
-                    raise AssertionError(
-                        f"{name} differs from its plain version ({label})")
-                if g.numel():
-                    err = max(err, int((g.long() - w.long()).abs().max()))
-            errs[name] = err
-            log(f"{label}: {name} kernel == plain (exact)")
-        return errs
+    errs = {name: 0 for name in kernels}
 
-    alg = ib.TileTraversal(row_cap=4, pair_cap=32)
+    def check_kernel(name, args, kw, label):
+        wrapper, plain = kernels[name][:2]
+        got, want = outputs_of(name, wrapper(*args, **kw),
+                               plain(*args, **kw), kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want, strict=True):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(
+                    f"{name} differs from its plain version ({label})")
+            if g.numel():
+                errs[name] = max(errs[name],
+                                 int((g.long() - w.long()).abs().max()))
+        log(f"{label}: {name} kernel == plain (exact)")
+
+    def check_kernels(seen, label, names):
+        missing = set(names) - set(seen)
+        if missing:
+            raise AssertionError(f"{label}: {sorted(missing)} not called")
+        for name in names:
+            check_kernel(name, *seen[name], label)
+
+    two_phase = ib.TileTraversal(**TWO_PHASE)
+    fallback = ib.TileTraversal(**FALLBACK)
 
     # 1. kernels against their plain versions: small scene, tile 32
-    small_alg = ib.TileTraversal(tile=32, row_cap=4, pair_cap=32)
+    small = to_dev(synth_triangles(N_SMALL, seed=1), dev)
     with recorded_inputs() as seen:
-        step(*to_dev(synth_triangles(N_SMALL, seed=1), dev), 4096, small_alg)
-    check_kernels(seen, f"small scene ({N_SMALL} triangles, tile 32)")
+        step(*small, 4096, ib.TileTraversal(tile=32, **TWO_PHASE))
+    check_kernels(seen, f"small scene ({N_SMALL} triangles, tile 32, "
+                  "two-phase)", two_phase_kernels)
+    small_fb = ib.TileTraversal(tile=32, row_cap=16, pair_cap=256)
+    with recorded_inputs() as seen:
+        _, small_bvh, _ = step(*small, 4096, small_fb)
+    label = f"small scene ({N_SMALL} triangles, tile 32, fallback)"
+    check_kernels(seen, label, fallback_kernels)
+    check_kernel("tile_pair_contacts", *pair_list(small_bvh, small_fb),
+                 label)
 
-    # 2. the main path at the bench scene, launch counts read around it
+    def check_contacts(total, contacts, overflow, spheres, label):
+        """Sorted (min, max) pairs inside the sphere predicate, no
+        duplicates, no overflow; returns the sorted pair keys."""
+        if overflow != 0:
+            raise AssertionError(f"overflow {overflow} ({label})")
+        c = contacts[:total].long() - 1
+        if not bool((c[:, 0] < c[:, 1]).all()):
+            raise AssertionError(f"contacts are not sorted (min, max) pairs "
+                                 f"({label})")
+        keys = (c[:, 0] * N_BENCH + c[:, 1]).sort().values
+        if torch.unique(keys).numel() != total:
+            raise AssertionError(f"duplicate contacts ({label})")
+        xs, r = spheres.xs, spheres.r
+        dx, dy, dz = (x[c[:, 0]] - x[c[:, 1]] for x in xs)
+        rr = r[c[:, 0]] + r[c[:, 1]]
+        if not bool((dx * dx + dy * dy + dz * dz <= rr * rr).all()):
+            raise AssertionError(f"a contact fails the sphere predicate "
+                                 f"({label})")
+        return keys
+
+    def main_path(bvh, alg):
+        """One traverse_tiles_fixed call with the launch counts set to 0
+        just before and read just after, under the sync check."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")  # the fixed path never syncs
+        try:
+            out = ib.traverse_tiles_fixed(bvh, capacity, alg=alg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, {name: k[0].launches for name, k in kernels.items()}
+
+    # 2. the two-phase route at the bench scene
     capacity = max(1 << (math.ceil(math.log2(N_BENCH)) - 3), 4096)
     tris = to_dev(synth_triangles(N_BENCH), dev)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
     spheres = ib.bsphere_from_triangles(*tris)
     bvh = ib.build(spheres)
-    torch.cuda.set_sync_debug_mode("error")  # the fixed path never syncs
-    try:
-        total, contacts, overflow, num_checks = ib.traverse_tiles_fixed(
-            bvh, capacity, alg=alg)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    launches = {name: k[0].launches for name, k in kernels.items()}
+    (total, contacts, overflow, num_checks), launches_2p = \
+        main_path(bvh, two_phase)
     total, ov = int(total), int(overflow)
-    log(f"bench scene: {N_BENCH} triangles, {total} contacts "
+    log(f"bench scene, two-phase: {N_BENCH} triangles, {total} contacts "
         f"(the JAX package reported {TPU_BENCH_CONTACTS} on a TPU v5e), "
         f"overflow {ov}, num_checks {float(num_checks):.0f}, "
-        f"launches {launches}")
-    if ov != 0:
-        raise AssertionError(f"overflow {ov} on the bench scene")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    c = contacts[:total].long() - 1
-    if not bool((c[:, 0] < c[:, 1]).all()):
-        raise AssertionError("contacts are not sorted (min, max) pairs")
-    if torch.unique(c[:, 0] * N_BENCH + c[:, 1]).numel() != total:
-        raise AssertionError("duplicate contacts")
-    xs, r = spheres.xs, spheres.r
-    dx, dy, dz = (x[c[:, 0]] - x[c[:, 1]] for x in xs)
-    rr = r[c[:, 0]] + r[c[:, 1]]
-    if not bool((dx * dx + dy * dy + dz * dz <= rr * rr).all()):
-        raise AssertionError("a contact fails the sphere predicate")
-    log("bench scene: every contact satisfies the sphere predicate, "
+        f"launches {launches_2p}")
+    if min(launches_2p[n] for n in two_phase_kernels) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches_2p}")
+    keys_2p = check_contacts(total, contacts, ov, spheres, "two-phase")
+    log("bench scene, two-phase: every contact satisfies the sphere "
+        "predicate, no duplicates, no host sync in traverse_tiles_fixed")
+
+    # 3. the fallback on the same BVH
+    (total_fb, contacts_fb, overflow_fb, num_checks_fb), launches_fb = \
+        main_path(bvh, fallback)
+    total_fb, ov_fb = int(total_fb), int(overflow_fb)
+    log(f"bench scene, fallback {FALLBACK}: {total_fb} contacts, overflow "
+        f"{ov_fb}, num_checks {float(num_checks_fb):.0f}, launches "
+        f"{launches_fb}")
+    if min(launches_fb[n] for n in fallback_kernels) < 1 or \
+            launches_fb["tile_run_counts"] or launches_fb["tile_group_emit"]:
+        raise AssertionError(f"fallback launches are wrong: {launches_fb}")
+    keys_fb = check_contacts(total_fb, contacts_fb, ov_fb, spheres,
+                             "fallback")
+    if total_fb != total or not torch.equal(keys_fb, keys_2p):
+        raise AssertionError("the fallback's contacts differ from the "
+                             "two-phase route's")
+    log("bench scene, fallback: the contact set and total equal the "
+        "two-phase route's; every contact satisfies the sphere predicate, "
         "no duplicates, no host sync in traverse_tiles_fixed")
 
+    # 4. kernels against their plain versions at the bench scene's inputs
     with recorded_inputs() as seen_1m:
-        step(*tris, capacity, alg)
-    errs = check_kernels(seen_1m, f"bench scene ({N_BENCH} triangles)")
+        step(*tris, capacity, two_phase)
+    check_kernels(seen_1m, f"bench scene ({N_BENCH} triangles, two-phase)",
+                  two_phase_kernels)
+    with recorded_inputs() as seen_fb:
+        step(*tris, capacity, fallback)
+    label = f"bench scene ({N_BENCH} triangles, fallback)"
+    check_kernels(seen_fb, label, fallback_kernels)
+    b6_in = pair_list(bvh, fallback)
+    check_kernel("tile_pair_contacts", *b6_in, label)
+    inputs = {n: seen_1m[n] for n in two_phase_kernels}
+    inputs.update({n: seen_fb[n] for n in ("tile_compact",
+                                           "tile_group_contacts")})
+    inputs["tile_pair_contacts"] = b6_in
 
-    # 3. the whole path on the card against the port on the CPU
+    # 5. both routes on the card against the port on the CPU; README demo
     cross = synth_triangles(N_CROSS, seed=2)
     cap_x = max(1 << (math.ceil(math.log2(N_CROSS)) - 3), 4096)
-    res = []
-    for d in (dev, torch.device("cpu")):
-        tot, con, ovx, nc = step(*to_dev(cross, d), cap_x, alg)[1]
-        tot = int(tot)
-        pairs = sorted(map(tuple, con[:tot].cpu().tolist()))
-        res.append((tot, pairs, int(ovx), float(nc)))
-    if res[0] != res[1]:
-        raise AssertionError(f"card and CPU disagree on the {N_CROSS}-"
-                             "triangle scene")
-    log(f"cross scene: {N_CROSS} triangles, card == CPU: {res[0][0]} "
-        f"contacts, overflow {res[0][2]}, num_checks {res[0][3]:.0f}")
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            tot, con, ovx, nc = step(*to_dev(cross, d), cap_x, alg)[2]
+            tot = int(tot)
+            pairs = sorted(map(tuple, con[:tot].cpu().tolist()))
+            res.append((tot, pairs, int(ovx), float(nc)))
+        if res[0] != res[1] or res[0][2] != 0:
+            raise AssertionError(f"card and CPU disagree on the {N_CROSS}-"
+                                 f"triangle scene ({route})")
+        log(f"cross scene, {route}: {N_CROSS} triangles, card == CPU: "
+            f"{res[0][0]} contacts, overflow {res[0][2]}, num_checks "
+            f"{res[0][3]:.0f}")
+    ops.reset_launch_counts()
+    demo = ib.traverse_tiles(ib.build(ib.BSphere(
+        np.array([[0, 0, 0], [0, 0, 1], [0, 0, 2], [0, 0, 3], [0, 0, 4]],
+                 np.float32),
+        np.array([0.5, 0.6, 0.5, 0.4, 0.6], np.float32), device=dev)))
+    if demo.contacts_list() != [(1, 2), (2, 3), (4, 5)] or \
+            ops.tile_group_contacts.launches < 1:
+        raise AssertionError(f"README demo on the card: "
+                             f"{demo.contacts_list()}")
+    log(f"README demo on the card (default options, capacity "
+        f"{demo.cache1.shape[0]}, fallback): {demo.contacts_list()}")
 
-    # 4. timings at the bench scene
+    # 6. timings at the bench scene
     def time_ms(fn, reps=7):
         fn()
         torch.cuda.synchronize()
@@ -281,16 +421,64 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    step_ms = time_ms(lambda: step(*tris, capacity, alg))
-    log(f"time: bench step end to end {step_ms:.4f} ms [{card}]")
+    def stage_ms(alg):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        s = ib.bsphere_from_triangles(*tris)
+        ev[1].record()
+        b = ib.build(s)
+        ev[2].record()
+        ib.traverse_tiles_fixed(b, capacity, alg=alg)
+        ev[3].record()
+        ev[3].synchronize()
+        return [ev[k].elapsed_time(ev[k + 1]) for k in range(3)]
+
+    def time_route(route, alg):
+        """The route's step end to end and by stage, its host enqueue time
+        and its profile."""
+        step_ms = time_ms(lambda: step(*tris, capacity, alg))
+        log(f"time: bench step end to end, {route}: {step_ms:.4f} ms "
+            f"[{card}]")
+        stages = [stage_ms(alg) for _ in range(7)]
+        log(f"time: stages, {route} (median of 7) "
+            + ", ".join(f"{n} {statistics.median(t[k] for t in stages):.4f}"
+                        f" ms" for k, n in enumerate(
+                            ("bounding spheres", "build", "traversal")))
+            + f" [{card}]")
+        host = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            step(*tris, capacity, alg)
+            host.append((time.perf_counter() - h0) * 1e3)
+        torch.cuda.synchronize()
+        log(f"time: host enqueue of one step, {route}: "
+            f"{statistics.median(host):.4f} ms (median of 7) [{card}]")
+        profile_step(torch, lambda: step(*tris, capacity, alg), step_ms,
+                     route, card)
+
+    time_route("two-phase", two_phase)
+    time_route("fallback", fallback)
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
+    def slot_tests(ti, tj, band, live, G):
+        """Leaf tests of the slot kernels: G per live row of a live entry,
+        the rows after it on a diagonal (ti == tj) entry."""
+        BH = G // 4
+        rows = torch.arange(G, device=dev).view(4, BH)
+        per_band = torch.stack([torch.full((4,), BH * G, device=dev),
+                                (G - 1 - rows).sum(1)])        # (2, 4)
+        bits = torch.stack([(band >> r) & 1 for r in range(4)], 1)
+        t = (bits * per_band[(ti == tj).long()]).sum(1)
+        return int((t * live).sum())
+
     def bound(name, args, kw):
         """(bound_ms, bound_by): the larger of the bytes over the memory
-        rate and the float operations this run's data needs over the fp32
-        rate."""
+        rate (inputs read once, outputs written once) and the float
+        operations this run's data needs over the fp32 rate."""
+        ops_n = 0
         if name == "subtile_band_bits":
             sub, tl, si, sj, nsp = args
             out_b = si.shape[0] * 32 * 32 * 4
@@ -308,7 +496,7 @@ def main() -> int:
             b = nbytes(a_idx, run_idx, bm, nsteps, fields) + \
                 2 * run_idx.shape[0] * kw["R"] * 4
             ops_n = float(num_checks) * FLOPS_PER_TEST[kw["mask_kind"]]
-        else:
+        elif name == "tile_group_emit":
             a_idx, b_idx, nsteps, fields = args
             G = fields.shape[2]
             W = b_idx.shape[0] // a_idx.shape[0]
@@ -320,51 +508,79 @@ def main() -> int:
             tests = int((nbands * live).sum()) * (G // 4) * G
             ops_n = tests * FLOPS_PER_TEST[kw["mask_kind"]]
             b = nbytes(a_idx, b_idx, nsteps, fields) + 2 * kw["CAP"] * 4 + 4
+        elif name == "tile_compact":
+            # the mask is read in full, each payload only in the 32-byte
+            # sectors that hold a kept survivor; the slots are zeroed and
+            # written, counted once, with the per-tile counts and flags
+            mask, payloads = args
+            tiles_n = mask.shape[0] // (128 * 128)
+            m = mask.view(tiles_n, 128, 128)
+            mi = m.int()
+            rank = mi.cumsum(2) - mi
+            row_cnt = mi.sum(2)
+            row_off = row_cnt.cumsum(1) - row_cnt
+            kept = m & (rank < kw["row_cap"]) & \
+                (row_off[:, :, None] + rank < kw["cap"])
+            sectors = int(kept.view(-1, 8).any(1).sum())
+            b = nbytes(mask) + len(payloads) * sectors * 32 + \
+                (len(payloads) * kw["cap"] + 2) * tiles_n * 4
+        else:  # the slot kernels: the lanes below each count are written
+            if name == "tile_group_contacts":
+                a_idx, b_idx, nsteps, fields = args
+                W = b_idx.shape[0] // a_idx.shape[0]
+                e = torch.arange(b_idx.shape[0], device=dev)
+                ti, tj = a_idx[e // W], b_idx & 0xFFFF
+                band = (b_idx >> 16) & 0xF
+                live = (e // W) < nsteps.clamp(max=a_idx.shape[0])
+                ins = (a_idx, b_idx, nsteps, fields)
+            else:
+                packed, npairs, fields = args
+                ti, tj = (packed >> 16) & 0xFFFF, packed & 0xFFFF
+                band = torch.full_like(ti, 0xF)
+                live = torch.arange(packed.shape[0], device=dev) < npairs
+                ins = (packed, npairs, fields)
+            T, G = fields.shape[1], fields.shape[2]
+            live = live & (ti < T) & (tj < T) & (ti <= tj)
+            ops_n = slot_tests(ti, tj, band, live, G) * \
+                FLOPS_PER_TEST[kw["mask_kind"]]
+            counts = kernels[name][0](*args, **kw)[2]
+            lanes = int(counts.clamp(max=kw["CAP_PAIR"]).sum())
+            b = nbytes(*ins) + 4 * counts.numel() + 4 + 2 * 4 * lanes
         t_bytes = b / HBM_BYTES_PER_S * 1e3
         t_ops = ops_n / FP32_OPS_PER_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def stage_ms():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        s = ib.bsphere_from_triangles(*tris)
-        ev[1].record()
-        b = ib.build(s)
-        ev[2].record()
-        ib.traverse_tiles_fixed(b, capacity, alg=alg)
-        ev[3].record()
-        ev[3].synchronize()
-        return [ev[k].elapsed_time(ev[k + 1]) for k in range(3)]
-
-    stages = [stage_ms() for _ in range(7)]
-    log("time: stages (median of 7) "
-        + ", ".join(f"{n} {statistics.median(t[k] for t in stages):.4f} ms"
-                    for k, n in enumerate(("bounding spheres", "build",
-                                           "traversal")))
-        + f" [{card}]")
-    host = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        step(*tris, capacity, alg)
-        host.append((time.perf_counter() - h0) * 1e3)
-    torch.cuda.synchronize()
-    log(f"time: host enqueue of one step {statistics.median(host):.4f} ms "
-        f"(median of 7) [{card}]")
-    profile_step(torch, lambda: step(*tris, capacity, alg), step_ms, card)
-
+    launches = dict(launches_fb)
+    launches.update({n: launches_2p[n] for n in two_phase_kernels})
     rows = []
     for name, (wrapper, plain, source, replaces) in kernels.items():
-        args, kw = seen_1m[name]
+        args, kw = inputs[name]
         k_ms = time_ms(lambda: wrapper(*args, **kw))
-        p_ms = time_ms(lambda: plain(*args, **kw), reps=5)
+        p_ms = time_ms(lambda: plain(*args, **kw), reps=3)
         b_ms, b_by = bound(name, args, kw)
+        lib_ms = None
+        if name == "tile_compact":
+            # yardstick only: the same survivors, in the same order when
+            # nothing overflows; the port never calls it
+            mask, payloads = args
+            stacked = torch.stack(payloads)
+            lib_ms = time_ms(lambda: torch.masked_select(stacked, mask))
+            slots, counts, _ = wrapper(*args, **kw)
+            flat, n = ops.finish_compact(slots, counts, mask.shape[0])
+            if not torch.equal(torch.stack(flat)[:, :int(n)],
+                               torch.masked_select(stacked, mask).view(
+                                   len(payloads), -1)):
+                raise AssertionError("tile_compact + finish_compact differ "
+                                     "from torch.masked_select")
         log(f"time: {name} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by}) [{card}]")
+            f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"launches {launches[name]}, bound {b_ms:.6f} ms ({b_by}) "
+            f"[{card}]")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

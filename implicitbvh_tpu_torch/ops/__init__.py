@@ -1,10 +1,14 @@
 """Hand-written CUDA kernels of the tile engine and their plain versions."""
 
+from .compaction import finish_compact, tile_compact, tile_compact_plain
 from .subtile import subtile_band_bits, subtile_band_bits_plain
-from .tile_contact import (tile_group_emit, tile_group_emit_plain,
+from .tile_contact import (tile_group_contacts, tile_group_contacts_plain,
+                           tile_group_emit, tile_group_emit_plain,
+                           tile_pair_contacts, tile_pair_contacts_plain,
                            tile_run_counts, tile_run_counts_plain)
 
-KERNELS = (subtile_band_bits, tile_run_counts, tile_group_emit)
+KERNELS = (subtile_band_bits, tile_run_counts, tile_group_emit,
+           tile_group_contacts, tile_compact, tile_pair_contacts)
 
 
 def reset_launch_counts():
@@ -13,7 +17,10 @@ def reset_launch_counts():
         k.launches = 0
 
 
-__all__ = ["KERNELS", "reset_launch_counts", "subtile_band_bits",
-           "subtile_band_bits_plain", "tile_group_emit",
-           "tile_group_emit_plain", "tile_run_counts",
+__all__ = ["KERNELS", "finish_compact", "reset_launch_counts",
+           "subtile_band_bits", "subtile_band_bits_plain", "tile_compact",
+           "tile_compact_plain", "tile_group_contacts",
+           "tile_group_contacts_plain", "tile_group_emit",
+           "tile_group_emit_plain", "tile_pair_contacts",
+           "tile_pair_contacts_plain", "tile_run_counts",
            "tile_run_counts_plain"]

@@ -1,18 +1,25 @@
-"""Two-phase tile contact: count and emit kernels, and their plain versions.
+"""Tile contact kernels and their plain versions.
 
-Replaces ``implicitbvh_tpu/ops/tile_contact.py:tile_run_counts`` (the
-run-block count kernel, sphere and box masks, ``with_colmax``) and
-``tile_group_emit`` (the emit kernel).  Leaf fields arrive as one
-``(F, T, G)`` float32 tensor: F = 4 (sphere ``x0, x1, x2, r``) or 6 (box
-``lo0, lo1, lo2, up0, up1, up2``), T tiles of G sorted leaves, padded
-leaves NaN so that every predicate on them is false.
+Replaces, from ``implicitbvh_tpu/ops/tile_contact.py``:
 
-Both kernels are bound by operations on the H100 (the leaf tests), not by
-bytes: each block keeps its a-tile in shared memory and each thread one
-b-leaf in registers, and dead tiles and bands cost a branch.  The count
-kernel reduces per block and writes the reduced counts and colmax; the
-emit kernel writes at offsets scanned from the exact counts, so neither
-needs the TPU kernels' lane planes, cursors or one-hot compaction.
+- ``tile_run_counts`` (the two-phase route's count kernel, sphere and box
+  masks, ``with_colmax``) and ``tile_group_emit`` (its emit kernel);
+- ``tile_group_contacts`` (the pair-granularity fallback's grouped kernel)
+  and ``tile_pair_contacts`` (the same per-pair slot compaction over a
+  packed pair list, which no path calls), sphere and box masks on one field
+  set.
+
+Leaf fields arrive as one ``(F, T, G)`` float32 tensor: F = 4 (sphere
+``x0, x1, x2, r``) or 6 (box ``lo0, lo1, lo2, up0, up1, up2``), T tiles of
+G sorted leaves, padded leaves NaN so that every predicate on them is false.
+
+All four kernels are bound by operations on the H100 (the leaf tests), not
+by bytes.  The count and emit kernels keep the a-tile in shared memory and
+one b-leaf per thread in registers; the slot kernels keep the b-tile in
+shared memory and one a-row per thread.  Dead tiles and bands cost a
+branch, counts are reduced and scanned in the block, and contacts are
+written at scanned offsets, so none needs the TPU kernels' lane planes,
+cursors or one-hot compaction.
 """
 
 from __future__ import annotations
@@ -275,3 +282,193 @@ def tile_group_emit(a_idx, b_idx, nsteps, fields, *, mask_kind, ROW_CAP=4,
 
 
 tile_group_emit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Per-pair contact slots: grouped kernel and packed pair-list kernel
+# ---------------------------------------------------------------------------
+
+def _check_slot_caps(ROW_CAP, CAP_PAIR):
+    if ROW_CAP <= 0 or CAP_PAIR <= 0:
+        raise ValueError(f"need ROW_CAP > 0 and CAP_PAIR > 0, got "
+                         f"{ROW_CAP}, {CAP_PAIR}")
+
+
+def _slot_contacts_plain(fields, ti, tj, band, live, *, mask_kind, ROW_CAP,
+                         CAP_PAIR, dedup):
+    """Row-major contact slots of the pairs ``(ti[e], tj[e])`` where
+    ``live``: the s-th contact of a-row i (b-lane order), s < ROW_CAP, goes
+    to lane ``row_off[i] + s`` if below CAP_PAIR.  Lanes that no contact
+    fills hold -1.  Returns ``(gi, gj, counts, overflow)``."""
+    n = ti.shape[0]
+    G = fields.shape[2]
+    dev = fields.device
+    gi = torch.full((n, CAP_PAIR), -1, dtype=torch.int32, device=dev)
+    gj = torch.full((n, CAP_PAIR), -1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(n, dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for c in _chunks(live.nonzero().squeeze(1), G):
+        tic, tjc = ti[c], tj[c]
+        m = _pair_masks(fields, tic, tjc, band[c], N_BANDS, mask_kind, dedup)
+        if dedup:          # global sorted order j > i: nothing when ti > tj
+            m &= (tic <= tjc)[:, None, None]
+        rc = m.sum(2, dtype=torch.int32)                      # (P, G) rows
+        cnt = rc.sum(1, dtype=torch.int32)
+        counts[c] = cnt
+        overflow |= (cnt > CAP_PAIR).any() | (rc > ROW_CAP).any()
+        hit = cnt > 0
+        c, m, rc, tic, tjc = c[hit], m[hit], rc[hit], tic[hit], tjc[hit]
+        row_off = torch.cumsum(rc, 1, dtype=torch.int32) - rc
+        rank = torch.cumsum(m, 2, dtype=torch.int32) - 1
+        lane = row_off[:, :, None] + rank
+        keep = m & (rank < ROW_CAP) & (lane < CAP_PAIR)
+        p, i, j = keep.nonzero(as_tuple=True)
+        dst = (c[p], lane[p, i, j].long())
+        gi[dst] = (tic[p] * G + i).int()
+        gj[dst] = (tjc[p] * G + j).int()
+    return gi, gj, counts, overflow
+
+
+def tile_group_contacts_plain(a_idx, b_idx, nsteps, fields, *, mask_kind,
+                              ROW_CAP=4, CAP_PAIR=16, dedup=True):
+    """Plain PyTorch version of :func:`tile_group_contacts` (every lane
+    that no contact fills holds -1)."""
+    S_cap, T = a_idx.shape[0], fields.shape[1]
+    step = torch.arange(b_idx.shape[0], device=b_idx.device) // \
+        (b_idx.shape[0] // S_cap)
+    ti = a_idx[step]
+    tj = b_idx & 0xFFFF
+    band = (b_idx >> 16) & ((1 << N_BANDS) - 1)
+    live = (step < nsteps.clamp(max=S_cap)) & (band != 0) & (ti < T) & \
+        (tj < T)
+    return _slot_contacts_plain(fields, ti, tj, band, live,
+                                mask_kind=mask_kind, ROW_CAP=ROW_CAP,
+                                CAP_PAIR=CAP_PAIR, dedup=dedup)
+
+
+def tile_group_contacts(a_idx, b_idx, nsteps, fields, *, mask_kind,
+                        ROW_CAP=4, CAP_PAIR=16, dedup=True):
+    """Padded per-pair contact slots of a grouped pair list.
+
+    - ``a_idx``: (S_cap,) int32 a-tile per step.
+    - ``b_idx``: (S_cap*W,) int32 entries ``tj | band << 16``: b-tile and
+      the 4-bit mask of the a-tile's live bands (G/4 rows each); pad
+      entries carry band 0 (and ``tj = T``) and match nothing.
+    - ``nsteps``: (1,) int32 live steps (read on the device).
+    - ``fields``: (F, T, G) float32 leaf fields.
+    - ``dedup``: keep only ``tj*G + j > ti*G + i`` (self-contact).
+
+    Returns ``(gi, gj, counts, overflow)``: (S_cap*W, CAP_PAIR) int32 slots
+    of global sorted positions ``ti*G + i`` and ``tj*G + j``, row-major (the
+    s-th contact of a-row i in b-lane order, s < ROW_CAP, at lane
+    ``row_off[i] + s`` if below CAP_PAIR, ``row_off`` the exclusive prefix
+    of the uncapped row counts); the uncapped contact count of each entry,
+    (S_cap*W,) int32; and a 0-dim bool, set when a count exceeds CAP_PAIR
+    or a row ROW_CAP.  Lanes below ``min(count, CAP_PAIR)`` that no contact
+    fills (those of a row's contacts past ROW_CAP) hold -1; lanes past the
+    count are undefined.
+
+    Replaces ``implicitbvh_tpu/ops/tile_contact.py:tile_group_contacts``
+    (``_group_kernel``, ``_pair_compact_vrows``).  On the H100 it is bound
+    by operations (the live bands' leaf tests); ``csrc/group_contacts.cu``
+    runs one block per entry, one thread per a-row, counts in one pass and
+    writes the slots in a second pass over the pairs with contacts only.
+    """
+    _check_fields(fields, mask_kind)
+    _check_slot_caps(ROW_CAP, CAP_PAIR)
+    dev = fields.device
+    S_cap = a_idx.shape[0]
+    if S_cap == 0 or b_idx.shape[0] % S_cap:
+        raise ValueError("b_idx length must be a multiple of len(a_idx)")
+    SW = b_idx.shape[0]
+    _build.check(a_idx, "a_idx", torch.int32, (S_cap,), dev)
+    _build.check(b_idx, "b_idx", torch.int32, (SW,), dev)
+    _build.check(nsteps, "nsteps", torch.int32, (1,), dev)
+    kw = dict(mask_kind=mask_kind, ROW_CAP=ROW_CAP, CAP_PAIR=CAP_PAIR,
+              dedup=dedup)
+    if not _build.cuda_device(fields):
+        return tile_group_contacts_plain(a_idx, b_idx, nsteps, fields, **kw)
+    P, I = _build.P, _build.I
+    fn = _build.kernel_fn("group_contacts", "group_contacts_launch",
+                          [P] * 8 + [I] * 8 + [P])
+    gi, gj, counts, over = _slot_outputs(SW, CAP_PAIR, dev)
+    with torch.cuda.device(dev):
+        _build.launch(fn, "group_contacts", a_idx.data_ptr(),
+                      b_idx.data_ptr(), nsteps.data_ptr(), fields.data_ptr(),
+                      gi.data_ptr(), gj.data_ptr(), counts.data_ptr(),
+                      over.data_ptr(), S_cap, SW // S_cap, fields.shape[1],
+                      fields.shape[2], int(mask_kind == "box"), int(dedup),
+                      ROW_CAP, CAP_PAIR)
+    tile_group_contacts.launches += 1
+    return gi, gj, counts, over[0] > 0
+
+
+tile_group_contacts.launches = 0
+
+
+def _slot_outputs(n, CAP_PAIR, dev):
+    """Slot outputs of the slot kernels: the kernel fills every lane below
+    a pair's count and CAP_PAIR, and lanes past the count are never read,
+    so the slots are left unfilled."""
+    return (torch.empty((n, CAP_PAIR), dtype=torch.int32, device=dev),
+            torch.empty((n, CAP_PAIR), dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def tile_pair_contacts_plain(packed, npairs, fields, *, mask_kind,
+                             ROW_CAP=4, CAP_PAIR=16, dedup=True):
+    """Plain PyTorch version of :func:`tile_pair_contacts` (every lane
+    that no contact fills holds -1)."""
+    T = fields.shape[1]
+    ti = (packed >> 16) & 0xFFFF
+    tj = packed & 0xFFFF
+    e = torch.arange(packed.shape[0], device=packed.device)
+    live = (e < npairs.clamp(max=packed.shape[0])) & (ti < T) & (tj < T)
+    band = torch.full_like(ti, (1 << N_BANDS) - 1)
+    return _slot_contacts_plain(fields, ti, tj, band, live,
+                                mask_kind=mask_kind, ROW_CAP=ROW_CAP,
+                                CAP_PAIR=CAP_PAIR, dedup=dedup)
+
+
+def tile_pair_contacts(packed, npairs, fields, *, mask_kind, ROW_CAP=4,
+                       CAP_PAIR=16, dedup=True):
+    """Padded per-pair contact slots of a packed pair list.
+
+    - ``packed``: (P_cap,) int32 pairs ``ti << 16 | tj`` (int32 wrap-around
+      for ``ti >= 32768``).
+    - ``npairs``: (1,) int32 live pairs (read on the device).
+    - ``fields``: (F, T, G) float32 leaf fields.
+
+    Every a-row is tested (no bands); otherwise as
+    :func:`tile_group_contacts`, one pair per entry.
+
+    Replaces ``implicitbvh_tpu/ops/tile_contact.py:tile_pair_contacts``
+    (``_pair_kernel``).  No path of either package calls it; it is the
+    second entry point of ``csrc/group_contacts.cu``.
+    """
+    _check_fields(fields, mask_kind)
+    _check_slot_caps(ROW_CAP, CAP_PAIR)
+    dev = fields.device
+    P_cap = packed.shape[0]
+    _build.check(packed, "packed", torch.int32, (P_cap,), dev)
+    _build.check(npairs, "npairs", torch.int32, (1,), dev)
+    kw = dict(mask_kind=mask_kind, ROW_CAP=ROW_CAP, CAP_PAIR=CAP_PAIR,
+              dedup=dedup)
+    if not _build.cuda_device(fields):
+        return tile_pair_contacts_plain(packed, npairs, fields, **kw)
+    P, I = _build.P, _build.I
+    fn = _build.kernel_fn("group_contacts", "pair_contacts_launch",
+                          [P] * 7 + [I] * 7 + [P])
+    gi, gj, counts, over = _slot_outputs(P_cap, CAP_PAIR, dev)
+    with torch.cuda.device(dev):
+        _build.launch(fn, "pair_contacts", packed.data_ptr(),
+                      npairs.data_ptr(), fields.data_ptr(), gi.data_ptr(),
+                      gj.data_ptr(), counts.data_ptr(), over.data_ptr(),
+                      P_cap, fields.shape[1], fields.shape[2],
+                      int(mask_kind == "box"), int(dedup), ROW_CAP, CAP_PAIR)
+    tile_pair_contacts.launches += 1
+    return gi, gj, counts, over[0] > 0
+
+
+tile_pair_contacts.launches = 0

@@ -1,17 +1,30 @@
-"""Tile self-contact traversal on its two-phase route.
+"""Tile self-contact traversal: the two-phase route and the
+pair-granularity fallback.
 
 Counterpart of ``implicitbvh_tpu/traverse/tiles.py``: Morton-sorted leaves
-form tiles of G; a supertile pass and the band-bit kernel
-(``ops/subtile.py``) list the candidate tile pairs as aligned runs of R
-b-tiles; the count kernel (``ops/tile_contact.py``) counts each pair's
-contacts; the pairs with contacts are regrouped and the emit kernel writes
-their contacts as one dense stream; user indices finish the list.
+form tiles of G, and a supertile pass with the band-bit kernel
+(``ops/subtile.py``) finds the candidate tile pairs.  Then one of two
+routes runs, chosen as in the JAX package:
 
-The capacity arithmetic is the JAX package's, copied so the overflow bits
-agree.  The fixed path makes no host sync: every count the kernels need
-(live slots, live steps) stays on the device.  The pair-granularity
-fallback (``pair_cap > 128``, ``capacity % 1024 != 0``, or growth past the
-slot caps) is not ported: it raises ``NotImplementedError`` (ROADMAP A12).
+- **two-phase** (``pair_cap <= 128`` and ``capacity % 1024 == 0``): the
+  pairs form aligned runs of R b-tiles; the count kernel
+  (``ops/tile_contact.py``) counts each pair's contacts, the pairs with
+  contacts are regrouped, and the emit kernel writes their contacts as one
+  dense stream;
+- **pair-granularity fallback** (otherwise, which includes every capacity
+  of 1024 or less and every ``pair_cap`` that slot-cap growth takes past
+  128): the compaction kernel (``ops/compaction.py``) lists the pairs with
+  their 4-bit band masks, the list is sorted and grouped W b-tiles per
+  a-tile, the slot kernel (``tile_group_contacts``) writes each pair's
+  padded contact slots, and each output slot gathers its contact from
+  them.
+
+User indices finish the list on both routes.  The capacity arithmetic is
+the JAX package's, copied so the overflow bits and growth agree.  The fixed
+path makes no host sync: every count the kernels need (live slots, steps,
+pairs) stays on the device.  Growth past the slot caps' ceilings ends in
+the JAX package's LVT walk, which is not ported: it raises
+``NotImplementedError`` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -24,8 +37,10 @@ import torch
 
 from ..build import BVH
 from ..options import DEFAULT_OPTIONS, BVHOptions
+from ..ops.compaction import finish_compact, tile_compact
 from ..ops.subtile import subtile_band_bits
-from ..ops.tile_contact import tile_group_emit, tile_run_counts
+from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
+                                tile_group_emit, tile_run_counts)
 from ..volumes import BSphere
 from .types import BVHTraversal, TraversalAlgorithm
 
@@ -44,7 +59,8 @@ class TileTraversal(TraversalAlgorithm):
     - ``count_w``: run slots per count step sharing one a-tile.
     - ``emit_w``: b-tiles per emit step.
     - ``bands``: sub-bands per tile (4, 8 or 16).
-    - ``decode_k``: must be 0 here (the moment-decode route is not ported).
+    - ``decode_k``: must be 0 on the two-phase route (the moment-decode
+      route is not ported); the fallback does not read it.
     """
 
     tile: int = 128
@@ -265,6 +281,75 @@ def _phase1_tile_runs(tiles, sub, G: int, P_cap: int, W: int, S_cap: int,
     return (*out, overflow | ov2)
 
 
+def _fold_sub4(sub):
+    """Fold ``(6, T, NB)`` sub-band bounds to the fallback's 4 bands (its
+    pair payload carries 4 band bits)."""
+    NB = sub.shape[2]
+    if NB == 4:
+        return sub
+    g = sub.view(6, sub.shape[1], 4, NB // 4)
+    return torch.cat([g[:3].amin(3), g[3:].amax(3)])
+
+
+def _phase1_tile_pairs(tiles, sub, P_cap: int):
+    """Superpairs -> band bits of 4 folded bands -> compacted pair list.
+
+    Returns ``(packed, band, npairs)``: (P_cap,) int32 pairs ``ti << 16 |
+    tj`` (int32 wrap-around) with ti <= tj, their (P_cap,) int32 band
+    masks, and the 0-dim int32 pair count (``P_cap + 1`` on any phase-1
+    overflow)."""
+    si, sj, nsp, sp_overflow = _phase1_superpairs(tiles, P_cap)
+    SP_cap = si.shape[0]
+    bits = subtile_band_bits(_fold_sub4(sub), tiles, si, sj,
+                             nsp.clamp(max=SP_cap).reshape(1), triangle=True)
+    # superpair axis minor: every mega-tile of the compactor mixes all
+    # superpairs, so its survivor density stays near the mean
+    bits_t = bits.permute(1, 2, 0).contiguous()          # (SS, SS, SP_cap)
+    k = torch.arange(SS, dtype=torch.int32, device=bits.device)
+    tii = (si * SS + k[:, None, None]).expand(SS, SS, SP_cap)
+    tjj = (sj * SS + k[None, :, None]) | (bits_t << 16)
+    cap_c = max(2048, P_cap // 116)
+    slots, counts, c_overflow = tile_compact(
+        (bits_t > 0).reshape(-1), (tii.reshape(-1), tjj.reshape(-1)),
+        cap=cap_c, row_cap=128)
+    (out_ti, out_tjb), npairs = finish_compact(slots, counts, P_cap)
+    p64 = (out_ti.long() << 16) | (out_tjb & 0xFFFF).long()
+    packed = (p64 - ((p64 >> 31) & 1) * (1 << 32)).int()   # int32 wrap
+    npairs = torch.where(sp_overflow | c_overflow, P_cap + 1, npairs)
+    return packed, out_tjb >> 16, npairs
+
+
+def _group_pairs(packed, band, npairs, W: int, S_cap: int, T_pad: int):
+    """Sort a packed pair list by (ti, tj) and pack each a-tile's b-tiles W
+    per step.  Returns ``(a_idx (S_cap,), b_idx (S_cap*W,), nsteps)``;
+    entries ``tj | band << 16``, pads ``T_pad`` with band 0."""
+    valid = torch.arange(packed.shape[0], device=packed.device) < npairs
+    # the JAX package sorts the packed words as uint32: an int64 key keeps
+    # ti >= 32768 in order, and the 2^32 sentinel sorts the pads last
+    key = torch.where(valid, packed.long() & 0xFFFFFFFF, 1 << 32)
+    key, perm = torch.sort(key)
+    b_entry = (key & 0xFFFF) | (band[perm].long() << 16)
+    a_idx, (b_idx,), nsteps = _leader_group(
+        (key >> 16) & 0xFFFF, valid, (b_entry,), (T_pad,), W, S_cap)
+    return a_idx, b_idx, nsteps
+
+
+def _extract_contacts(gi, gj, counts, leaf_index, narrow_mask_fn,
+                      capacity: int):
+    """Per-pair slots -> the final ``(total, contacts)``.  Pair ``p`` owns
+    output slots ``[off[p], off[p] + counts[p])``, ``off`` the exclusive
+    prefix of the uncapped counts (whose sum is the total); each output
+    slot finds its pair by a binary search and gathers its lane."""
+    SW, CAP_PAIR = gi.shape
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    k = torch.arange(capacity, dtype=torch.int32, device=gi.device)
+    p = torch.searchsorted(incl, k, right=True).clamp(max=SW - 1)
+    lane = (k - (incl[p] - counts[p])).clamp(0, CAP_PAIR - 1)
+    flat = p * CAP_PAIR + lane
+    return _finish_contacts(gi.view(-1)[flat], gj.view(-1)[flat], incl[-1],
+                            leaf_index, narrow_mask_fn, capacity)
+
+
 def _regroup_emit_runs(a_idx, run_idx, bm_words, counts, colmax, W2: int,
                        S2_cap: int, E2_cap: int, T_pad: int, R: int,
                        NB: int = 4):
@@ -364,11 +449,8 @@ def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
     alg = alg or TileTraversal()
     G = alg.tile
     NB = alg.bands
-    if not (alg.pair_cap <= 128 and capacity % 1024 == 0):
-        raise NotImplementedError(
-            "pair_cap > 128 or capacity % 1024 != 0 takes the "
-            "pair-granularity fallback, which is not ported (ROADMAP A12)")
-    if alg.decode_k:
+    two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
+    if two_phase and alg.decode_k:
         raise NotImplementedError(
             "the moment-decode emit route (decode_k > 0) is not ported "
             "(ROADMAP A9)")
@@ -384,7 +466,26 @@ def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
         def narrow_fn(gi, gj):
             return narrow(leaves[gi], leaves[gj])
 
-    W, R = alg.count_w, alg.run_r
+    mask_kind = "sphere" if sphere else "box"
+    W = alg.count_w
+    if not two_phase:          # the pair-granularity fallback
+        packed, band, npairs = _phase1_tile_pairs(tiles, sub, pair_capacity)
+        S_cap, _ = _step_caps(pair_capacity // W + T)
+        a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W, S_cap,
+                                            T)
+        pair_overflow = (npairs > pair_capacity) | (nsteps > S_cap)
+        gi, gj, counts, slot_overflow = tile_group_contacts(
+            a_idx, b_idx, nsteps.reshape(1), fields, mask_kind=mask_kind,
+            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=True)
+        total, contacts = _extract_contacts(gi, gj, counts, bvh.leaves.index,
+                                            narrow_fn, capacity)
+        overflow = ((pair_overflow | (total > capacity)).int()
+                    | (slot_overflow.int() << 1))
+        lane = torch.arange(band.shape[0], device=band.device)
+        num_checks = (torch.where(lane < npairs, _popcount(band), 0).sum()
+                      .to(torch.float32) * float((G // N_BANDS) * G))
+        return total, contacts, overflow, num_checks
+    R = alg.run_r
     S_cap, chunk = _step_caps(pair_capacity // W + T)
     ch_cap = _run_chunk_cap(W, R, NB)
     if chunk > ch_cap:
@@ -393,7 +494,6 @@ def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
     a_idx, run_idx, bm_words, nsteps, num_checks, pair_overflow = \
         _phase1_tile_runs(tiles, sub, G, pair_capacity, W, S_cap, R,
                           pad_run, NB)
-    mask_kind = "sphere" if sphere else "box"
     counts, colmax = tile_run_counts(
         a_idx, run_idx, bm_words, nsteps.reshape(1), fields,
         mask_kind=mask_kind, R=R, NB=NB, dedup=True)
@@ -424,8 +524,9 @@ def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
     """Tile self-contact with overflow-driven growth: re-runs
     :func:`traverse_tiles_fixed` with grown capacities (bit 0) or slot caps
     (bit 1) until nothing overflows.  ``cache`` (a previous result) starts
-    from its capacities.  Growth past the two-phase route's limits raises
-    ``NotImplementedError`` (ROADMAP A12)."""
+    from its capacities.  A scene still overflowing after eight runs would
+    take the JAX package's LVT walk, which is not ported: that raises
+    ``NotImplementedError`` (ROADMAP A11)."""
     alg = _merge_cached_alg(alg or TileTraversal(), cache)
     dev = bvh.device
     if bvh.tree.real_nodes <= 1:
@@ -460,4 +561,4 @@ def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
             alg = _grow_alg(alg)
     raise NotImplementedError(
         "the scene is too dense for the tile engine's slot caps; the LVT "
-        "walk fallback is not ported (ROADMAP A12)")
+        "walk fallback is not ported (ROADMAP A11)")

@@ -205,19 +205,8 @@ def test_readme_demo():
                   np.float32)
     rs = np.array([0.5, 0.6, 0.5, 0.4, 0.6], np.float32)
     bvh = tb.build(tb.BSphere(xs, rs, device="cpu"))
-    t = tb.traverse_tiles(bvh, options=tb.BVHOptions(min_capacity=1024))
+    t = tb.traverse_tiles(bvh)
     assert t.contacts_list() == [(1, 2), (2, 3), (4, 5)]
-
-
-def test_pair_granularity_fallback_raises():
-    ts = tb.bsphere_from_triangles(*[torch.from_numpy(p)
-                                     for p in triangles(256, 0)])
-    bvh = tb.build(ts)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tb.traverse_tiles_fixed(bvh, 1024,
-                                alg=tb.TileTraversal(tile=32, pair_cap=256))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tb.traverse_tiles_fixed(bvh, 1000, alg=tb.TileTraversal(tile=32))
 
 
 @pytest.mark.gpu
