@@ -9,9 +9,11 @@ It builds the CUDA kernels from ``implicitbvh_tpu_torch/csrc/`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once), then drives both
 routes of tile self-contact: the two-phase route (kernels B1 band bits, B2
 counts, B3 emit) and the pair-granularity fallback (B1, B5 compaction, B4
-grouped slots), which small capacities and grown slot caps take.  B6
-(per-pair slots of a packed pair list) is on no path and is held against
-its plain version only.
+grouped slots), which small capacities and grown slot caps take; and both
+routes of the batch ray query (two-phase: B2 with a ray mask and moment
+words, the moment decode, B3 with a ray mask; fallback: B4 with a ray
+mask).  B6 (per-pair slots of a packed pair list) is on no path and is held
+against its plain version only.
 
 1. runs each kernel and its plain PyTorch version on the same inputs on the
    card -- the inputs its stage gets on a small scene (tile 32) on both
@@ -34,12 +36,43 @@ its plain version only.
    CPU (plain versions) and requires identical contacts, total, overflow
    and ``num_checks``; runs the README demo on the card through
    ``traverse_tiles`` with default options (capacity 64, so the fallback);
-6. times (CUDA events, median of 7 after a warm-up) each route's 1M step
-   end to end and by stage, with its host enqueue time and a profile
-   (device time by kernel, device busy share), and each kernel at its 1M
-   inputs beside its plain version and, for B5, ``torch.masked_select``.
+6. holds each ray variant of B2 (``moments=True``), B3, B4 and B6 against
+   its plain version on a small ray scene (tile 32; sphere and box leaves;
+   rays with zero direction components and rays in face planes), and B2
+   with ``moments=True`` on the small scene's self-contact inputs;
+7. drives the ray query at full width through
+   ``traverse_rays_tiles_fixed``: 2^18 triangles -> spheres -> ``build``,
+   100,000 rays, capacity 2^18, the ray defaults (``row_cap=8, emit_w=8,
+   decode_k=8``), launch counts set to 0 just before and read just after;
+   it requires no overflow, no duplicate (leaf, ray) pair, no host sync,
+   at least one launch of B2 and B3, and the hit set of a brute force on
+   the card (``isintersection`` of every ray against every leaf sphere;
+   it shares its predicate formulas with the kernels' plain versions, and
+   ``tests/test_torch_rays.py`` holds it against the JAX package's
+   ``isintersection`` on the CPU);
+8. drives the ray fallback on the same scene (``row_cap=32,
+   pair_cap=512``): launches of B4 and none of B2 and B3, the same hit set;
+   then holds the ray variants against their plain versions at the
+   full-width inputs;
+9. runs tile self-contact at the 1M bench scene with ``decode_k=8`` (B2
+   with moment words, the decode, B3): the contact set of phase 2;
+10. runs a box-leaf scene (65,536 boxes, 8,192 rays), so that the
+    ``ray_box`` mask runs on a path, on the card and on the CPU on both
+    routes: identical hits, total, overflow and ``num_checks``; and
+    ``traverse_rays`` with default arguments on the card (growth from the
+    smallest capacity, dispatch to the tile engine) against the brute force;
+11. times (CUDA events, median of 7 after a warm-up) each self-contact
+    route's 1M step end to end and by stage and the full-width ray query
+    end to end and by stage (sort rays, phase 1, B2, regroup, decode, B3,
+    the rest), each with its host enqueue time and a profile (device time
+    by kernel, device busy share), and each kernel and variant at its
+    full-size inputs beside its plain version and, for B5,
+    ``torch.masked_select``.
 
-It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+Each row's bound is printed with both of its terms (bytes and operations)
+and, for B2 with ``moments``, also with only the live rows of the word plane
+counted as written.  It prints one ``{"kernels": [...]}`` line, the card's
+name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
 exits non-zero; so does a machine without a CUDA device.
 """
@@ -63,7 +96,16 @@ FALLBACK = dict(row_cap=32, pair_cap=512)   # pair_cap > 128: the fallback
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
-FLOPS_PER_TEST = {"sphere": 11, "box": 6}   # sub/mul/add/compare per leaf test
+# sub/mul/add/compare per test (selects and the per-ray reciprocals and d.d
+# not counted): ray_box 6 sub + 6 mul + 12 compares; ray_sphere 3 sub +
+# 6 (qb) + 7 (qc) + 4 (disc) + 3 compares
+FLOPS_PER_TEST = {"sphere": 11, "box": 6, "ray_box": 24, "ray_sphere": 23}
+
+N_RAY_TRIS = 1 << 18       # triangles of the full-width ray scene
+N_RAYS = 100_000           # its rays
+RAY_CAPACITY = 1 << 18
+TPU_RAY_HITS = 198988      # the JAX package's total on this scene (TPU v5e)
+N_BOX_RAYS = 8192          # rays of the box-leaf scene (N_CROSS boxes)
 
 
 def synth_triangles(n_tri: int, seed: int = 0):
@@ -75,6 +117,20 @@ def synth_triangles(n_tri: int, seed: int = 0):
     e1 = (rng.random((n_tri, 3)) - 0.5).astype(np.float32) * 0.4
     e2 = (rng.random((n_tri, 3)) - 0.5).astype(np.float32) * 0.4
     return c, c + e1, c + e2
+
+
+def bench_rays(n_leaves: int, seed: int = 1):
+    """The ray benchmark's 100,000 rays as (3, N) float32 arrays, the first
+    draws of the generator, as ``benchmarks/profile_rays.py`` and
+    ``diag_rays.py`` make them: the set behind the 198,988 hits of
+    ``benchmarks/RESULTS.md``.  (Config 3 of
+    ``benchmarks/baseline_configs.py`` draws them after a 1,000-ray set:
+    other rays, another total.)"""
+    rng = np.random.default_rng(seed)
+    scale = float(n_leaves) ** (1.0 / 3.0)
+    p = (rng.random((3, N_RAYS)) * scale).astype(np.float32)
+    d = (rng.random((3, N_RAYS)) - 0.5).astype(np.float32)
+    return p, d
 
 
 def log(msg):
@@ -134,7 +190,7 @@ def main() -> int:
         return 2
     from implicitbvh_tpu_torch import ops
     from implicitbvh_tpu_torch.ops import _build
-    from implicitbvh_tpu_torch.traverse import tiles
+    from implicitbvh_tpu_torch.traverse import ray_tiles, tiles
 
     dev = torch.device("cuda")
     card = card_line()
@@ -181,14 +237,16 @@ def main() -> int:
                          "tile_group_emit")
     fallback_kernels = ("subtile_band_bits", "tile_compact",
                         "tile_group_contacts")
-    # the wrappers the traversal calls by name (B6 is on no path)
-    on_path = [n for n in kernels if hasattr(tiles, n)]
+    ray_two_phase_kernels = ("tile_run_counts", "tile_group_emit")
+    ray_fallback_kernels = ("tile_group_contacts",)
 
     @contextlib.contextmanager
-    def recorded_inputs():
-        """Record the arguments each kernel wrapper gets from the path."""
+    def recorded_inputs(module=tiles):
+        """Record the arguments each kernel wrapper gets from the path
+        (the wrappers ``module`` calls by name; B6 is on no path)."""
         seen = {}
-        saved = {name: getattr(tiles, name) for name in on_path}
+        saved = {name: getattr(module, name) for name in kernels
+                 if hasattr(module, name)}
 
         def recorder(name, fn):
             def call(*args, **kw):
@@ -197,12 +255,12 @@ def main() -> int:
             return call
 
         for name, fn in saved.items():
-            setattr(tiles, name, recorder(name, fn))
+            setattr(module, name, recorder(name, fn))
         try:
             yield seen
         finally:
             for name, fn in saved.items():
-                setattr(tiles, name, fn)
+                setattr(module, name, fn)
 
     def to_dev(tris, device):
         return tuple(tuple(torch.as_tensor(np.ascontiguousarray(p[:, k]),
@@ -252,10 +310,20 @@ def main() -> int:
         return ([got] if torch.is_tensor(got) else list(got),
                 [want] if torch.is_tensor(want) else list(want))
 
-    errs = {name: 0 for name in kernels}
+    errs = {}      # row of the kernels line -> max abs difference seen
+
+    def row_of(name, kw):
+        """The row of the kernels line a call belongs to: the kernel's name,
+        with its variant where it is not the self-contact one."""
+        kind, moments = kw.get("mask_kind", ""), kw.get("moments", False)
+        tags = [kind] * (kind.startswith("ray") or moments) + \
+            ["moments"] * moments
+        return f"{name}[{','.join(tags)}]" if tags else name
 
     def check_kernel(name, args, kw, label):
         wrapper, plain = kernels[name][:2]
+        row = row_of(name, kw)
+        errs.setdefault(row, 0)
         got, want = outputs_of(name, wrapper(*args, **kw),
                                plain(*args, **kw), kw)
         torch.cuda.synchronize()
@@ -264,9 +332,9 @@ def main() -> int:
                 raise AssertionError(
                     f"{name} differs from its plain version ({label})")
             if g.numel():
-                errs[name] = max(errs[name],
-                                 int((g.long() - w.long()).abs().max()))
-        log(f"{label}: {name} kernel == plain (exact)")
+                errs[row] = max(errs[row],
+                                int((g.long() - w.long()).abs().max()))
+        log(f"{label}: {row} kernel == plain (exact)")
 
     def check_kernels(seen, label, names):
         missing = set(names) - set(seen)
@@ -312,6 +380,9 @@ def main() -> int:
                                  f"({label})")
         return keys
 
+    def launch_counts():
+        return {name: k[0].launches for name, k in kernels.items()}
+
     def main_path(bvh, alg):
         """One traverse_tiles_fixed call with the launch counts set to 0
         just before and read just after, under the sync check."""
@@ -323,7 +394,7 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        return out, {name: k[0].launches for name, k in kernels.items()}
+        return out, launch_counts()
 
     # 2. the two-phase route at the bench scene
     capacity = max(1 << (math.ceil(math.log2(N_BENCH)) - 3), 4096)
@@ -406,7 +477,238 @@ def main() -> int:
     log(f"README demo on the card (default options, capacity "
         f"{demo.cache1.shape[0]}, fallback): {demo.contacts_list()}")
 
-    # 6. timings at the bench scene
+    # ---- batch ray queries ------------------------------------------------
+    def ray_path(bvh, p, d, capacity, alg):
+        """One traverse_rays_tiles_fixed call with the launch counts set to
+        0 just before and read just after, under the sync check."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")  # the fixed path never syncs
+        try:
+            out = ib.traverse_rays_tiles_fixed(bvh, p, d, capacity, alg=alg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, launch_counts()
+
+    def hit_keys(total, contacts, overflow, n_leaves, n_rays, label):
+        """Sorted keys ``(leaf - 1) * n_rays + (ray - 1)`` of a ray result:
+        no overflow, indices in range, no duplicate pair."""
+        total, overflow = int(total), int(overflow)
+        if overflow != 0:
+            raise AssertionError(f"overflow {overflow} ({label})")
+        c = contacts[:total].long() - 1
+        if total and not bool(((c >= 0).all(1) & (c[:, 0] < n_leaves)
+                               & (c[:, 1] < n_rays)).all()):
+            raise AssertionError(f"a hit's indices are out of range ({label})")
+        keys = (c[:, 0] * n_rays + c[:, 1]).sort().values
+        if torch.unique(keys).numel() != total:
+            raise AssertionError(f"duplicate (leaf, ray) pairs ({label})")
+        return keys
+
+    def brute_force_keys(vol, p, d, chunk=256):
+        """The same keys from ``isintersection`` of every ray against every
+        leaf of ``vol`` (user order), ``chunk`` rays at a time."""
+        n_rays = p.shape[1]
+        if isinstance(vol, ib.BSphere):
+            v = ib.BSphere(tuple(x[:, None] for x in vol.xs), vol.r[:, None])
+        else:
+            v = ib.BBox(tuple(x[:, None] for x in vol.los),
+                        tuple(x[:, None] for x in vol.ups))
+        keys = []
+        for k0 in range(0, n_rays, chunk):
+            hit = ib.isintersection(
+                v, tuple(p[c, None, k0:k0 + chunk] for c in range(3)),
+                tuple(d[c, None, k0:k0 + chunk] for c in range(3)))
+            leaf, ray = hit.nonzero(as_tuple=True)
+            keys.append(leaf * n_rays + ray + k0)
+        return torch.cat(keys).sort().values
+
+    def ray_pair_list(args):
+        """B6's ray inputs: the live entries of a grouped ray list as a
+        packed ``ti << 16 | tj`` pair list."""
+        a_idx, b_idx, nsteps, rf, lf = args
+        W = b_idx.shape[0] // a_idx.shape[0]
+        e = torch.arange(b_idx.shape[0], device=dev)
+        live = ((e // W) < nsteps) & ((b_idx >> 16) != 0)
+        packed = ((a_idx[e // W] << 16) | (b_idx & 0xFFFF))[live]
+        n = torch.tensor([packed.shape[0]], dtype=torch.int32, device=dev)
+        return packed.int().contiguous(), n, rf, lf
+
+    def record_ray_inputs(bvh, p, d, capacity, two_phase_alg, fallback_alg,
+                          emit_alg=None):
+        """The ray kernels' inputs on one scene: B2 (and B3) from the
+        two-phase route, B3 from ``emit_alg`` when given (without the
+        decode every pair with hits reaches it), B4 from the fallback."""
+        with recorded_inputs(ray_tiles) as seen:
+            ib.traverse_rays_tiles_fixed(bvh, p, d, capacity,
+                                         alg=two_phase_alg)
+        if emit_alg is not None:
+            with recorded_inputs(ray_tiles) as seen_e:
+                ib.traverse_rays_tiles_fixed(bvh, p, d, capacity,
+                                             alg=emit_alg)
+            seen["tile_group_emit"] = seen_e["tile_group_emit"]
+        with recorded_inputs(ray_tiles) as seen_f:
+            ib.traverse_rays_tiles_fixed(bvh, p, d, capacity,
+                                         alg=fallback_alg)
+        seen.update(seen_f)
+        return seen
+
+    def check_ray_kernels(seen, label):
+        check_kernels(seen, label,
+                      ray_two_phase_kernels + ray_fallback_kernels)
+        args, kw = seen["tile_group_contacts"]
+        check_kernel("tile_pair_contacts", ray_pair_list(args), kw, label)
+
+    # 6. ray variants against their plain versions: small scene, tile 32
+    rng = np.random.default_rng(3)
+    small_spheres = ib.bsphere_from_triangles(*small)
+    span = float(N_SMALL) ** (1.0 / 3.0)
+    sp = (rng.random((3, 1024)) * span).astype(np.float32)
+    sd = (rng.random((3, 1024)) - 0.5).astype(np.float32)
+    sd[0, :64] = 0.0                       # zero direction components
+    sd[1, 32:96] = 0.0
+    sp[:, :160] = np.round(sp[:, :160])         # origins on lattice planes
+    sd[:, 160:224] = np.sign(sd[:, 160:224])    # equal |d|: bin ties
+    sp, sd = torch.as_tensor(sp, device=dev), torch.as_tensor(sd, device=dev)
+    small_boxes = ib.BBox(
+        tuple(torch.round(x - small_spheres.r) for x in small_spheres.xs),
+        tuple(torch.round(x + small_spheres.r) + 0.5
+              for x in small_spheres.xs))   # faces on the rays' planes
+    ray_small = dict(tile=32, row_cap=16, pair_cap=128)
+    for kind, vol in (("sphere", small_spheres), ("box", small_boxes)):
+        seen = record_ray_inputs(
+            ib.build(vol), sp, sd, 1 << 15,
+            ib.TileTraversal(decode_k=8, **ray_small),
+            ib.TileTraversal(tile=32, row_cap=16, pair_cap=256),
+            emit_alg=ib.TileTraversal(**ray_small))
+        check_ray_kernels(seen, f"small ray scene ({N_SMALL} {kind} leaves, "
+                          "1024 rays, tile 32)")
+    with recorded_inputs() as seen:
+        ib.traverse_tiles_fixed(small_bvh, 4096, alg=ib.TileTraversal(
+            tile=32, decode_k=8, **TWO_PHASE))
+    check_kernels(seen, f"small scene ({N_SMALL} triangles, tile 32, "
+                  "two-phase with decode_k=8)", ("tile_run_counts",))
+
+    # 7. the ray query at full width, two-phase route with the ray defaults
+    ray_spheres = ib.bsphere_from_triangles(
+        *to_dev(synth_triangles(N_RAY_TRIS), dev))
+    ray_bvh = ib.build(ray_spheres)
+    rp, rd = (torch.as_tensor(x, device=dev) for x in bench_rays(N_RAY_TRIS))
+    ray_fallback = ib.TileTraversal(row_cap=32, pair_cap=512)
+    (r_total, r_contacts, r_overflow, r_checks), launches_ray = \
+        ray_path(ray_bvh, rp, rd, RAY_CAPACITY, None)
+    log(f"ray scene, two-phase: {N_RAY_TRIS} leaves, {N_RAYS} rays, "
+        f"{int(r_total)} hits (the JAX package reported {TPU_RAY_HITS} on a "
+        f"TPU v5e), overflow {int(r_overflow)}, num_checks "
+        f"{float(r_checks):.0f}, launches {launches_ray}")
+    if min(launches_ray[n] for n in ray_two_phase_kernels) < 1 or \
+            launches_ray["tile_group_contacts"]:
+        raise AssertionError(f"ray launches are wrong: {launches_ray}")
+    keys_ray = hit_keys(r_total, r_contacts, r_overflow, N_RAY_TRIS, N_RAYS,
+                        "ray two-phase")
+    t0 = time.perf_counter()
+    keys_bf = brute_force_keys(ray_spheres, rp, rd)
+    log(f"ray scene: brute force of {N_RAYS} x {N_RAY_TRIS} tests on the "
+        f"card, {keys_bf.numel()} hits, {time.perf_counter() - t0:.3f} s")
+    if not torch.equal(keys_ray, keys_bf):
+        raise AssertionError("the ray query's hit set differs from the "
+                             "brute force's")
+    log("ray scene, two-phase: the hit set equals the brute force's, no "
+        "duplicates, no host sync in traverse_rays_tiles_fixed")
+
+    # 8. the ray fallback on the same scene; kernels at the full-width inputs
+    (f_total, f_contacts, f_overflow, f_checks), launches_rayfb = \
+        ray_path(ray_bvh, rp, rd, RAY_CAPACITY, ray_fallback)
+    log(f"ray scene, fallback {FALLBACK}: {int(f_total)} hits, overflow "
+        f"{int(f_overflow)}, num_checks {float(f_checks):.0f}, launches "
+        f"{launches_rayfb}")
+    if launches_rayfb["tile_group_contacts"] < 1 or \
+            launches_rayfb["tile_run_counts"] or \
+            launches_rayfb["tile_group_emit"]:
+        raise AssertionError(f"ray fallback launches are wrong: "
+                             f"{launches_rayfb}")
+    if not torch.equal(hit_keys(f_total, f_contacts, f_overflow, N_RAY_TRIS,
+                                N_RAYS, "ray fallback"), keys_bf):
+        raise AssertionError("the ray fallback's hit set differs from the "
+                             "brute force's")
+    log("ray scene, fallback: the hit set equals the brute force's, no "
+        "duplicates, no host sync in traverse_rays_tiles_fixed")
+    del r_contacts, f_contacts
+    seen_ray = record_ray_inputs(ray_bvh, rp, rd, RAY_CAPACITY, None,
+                                 ray_fallback)
+    check_ray_kernels(seen_ray, f"ray scene ({N_RAY_TRIS} leaves, {N_RAYS} "
+                      "rays)")
+
+    # 9. self-contact at the bench scene through the moment decode
+    decode = ib.TileTraversal(decode_k=8, **TWO_PHASE)
+    (d_total, d_contacts, d_overflow, _), launches_dec = \
+        main_path(bvh, decode)
+    keys_dec = check_contacts(int(d_total), d_contacts, int(d_overflow),
+                              spheres, "two-phase with decode_k=8")
+    if int(d_total) != total or not torch.equal(keys_dec, keys_2p):
+        raise AssertionError("decode_k=8 changes the contact set")
+    log(f"bench scene, two-phase with decode_k=8: {int(d_total)} contacts, "
+        f"the decode_k=0 set; launches {launches_dec}")
+    with recorded_inputs() as seen_dec:
+        ib.traverse_tiles_fixed(bvh, capacity, alg=decode)
+    check_kernels(seen_dec, f"bench scene ({N_BENCH} triangles, two-phase "
+                  "with decode_k=8)", ("tile_run_counts",))
+
+    # 10. box leaves, card against CPU on both routes; traverse_rays
+    cs = ib.bsphere_from_triangles(*to_dev(cross, torch.device("cpu")))
+    box_lo = torch.stack([x - cs.r for x in cs.xs], 1).numpy()
+    box_up = torch.stack([x + cs.r for x in cs.xs], 1).numpy()
+    brng = np.random.default_rng(4)
+    bscale = float(N_CROSS) ** (1.0 / 3.0)
+    bp = (brng.random((3, N_BOX_RAYS)) * bscale).astype(np.float32)
+    bd = (brng.random((3, N_BOX_RAYS)) - 0.5).astype(np.float32)
+    bd[2, :256] = 0.0
+    cap_b = 1 << 16
+    box_algs = (("two-phase", ib.TileTraversal(row_cap=8, pair_cap=64,
+                                               emit_w=8, decode_k=8)),
+                ("fallback", ray_fallback))
+    launches_box = {}
+    for route, alg in box_algs:
+        res = []
+        for dv in (dev, torch.device("cpu")):
+            bb = ib.build(ib.BBox(box_lo, box_up, device=dv))
+            ops.reset_launch_counts()
+            tot, con, ovx, nc = ib.traverse_rays_tiles_fixed(
+                bb, torch.as_tensor(bp, device=dv),
+                torch.as_tensor(bd, device=dv), cap_b, alg=alg)
+            if dv == dev:
+                launches_box[route] = launch_counts()
+                box_bvh = bb
+            tot = int(tot)
+            res.append((tot, sorted(map(tuple, con[:tot].cpu().tolist())),
+                        int(ovx), float(nc)))
+        if res[0] != res[1] or res[0][2] != 0 or res[0][0] == 0:
+            raise AssertionError(f"card and CPU disagree on the box-leaf "
+                                 f"ray scene ({route})")
+        log(f"box-leaf ray scene, {route}: {N_CROSS} boxes, {N_BOX_RAYS} "
+            f"rays, card == CPU: {res[0][0]} hits, overflow {res[0][2]}, "
+            f"num_checks {res[0][3]:.0f}, launches {launches_box[route]}")
+    bpd, bdd = torch.as_tensor(bp, device=dev), torch.as_tensor(bd, device=dev)
+    seen_box = record_ray_inputs(box_bvh, bpd, bdd, cap_b, box_algs[0][1],
+                                 ray_fallback)
+    check_ray_kernels(seen_box, f"box-leaf ray scene ({N_CROSS} boxes, "
+                      f"{N_BOX_RAYS} rays)")
+    for nr in (64, 1024):     # capacity 256 (fallback), 4096 (two-phase)
+        ops.reset_launch_counts()
+        t = ib.traverse_rays(ib.build(small_spheres), sp[:, :nr].cpu().numpy(),
+                             sd[:, :nr].cpu().numpy())
+        got = hit_keys(t.num_contacts, t.cache1, 0, N_SMALL, nr,
+                       "traverse_rays")
+        if not torch.equal(got, brute_force_keys(
+                small_spheres, sp[:, :nr].contiguous(),
+                sd[:, :nr].contiguous())) or t.cache1.device.type != "cuda":
+            raise AssertionError("traverse_rays differs from the brute force")
+        log(f"traverse_rays with default arguments on the card: {N_SMALL} "
+            f"leaves, {nr} rays, {t.num_contacts} hits, capacity "
+            f"{t.cache1.shape[0]}, {t.tile_alg}, launches {launch_counts()}")
+
+    # 11. timings at the bench scene and the full-width ray scene
     def time_ms(fn, reps=7):
         fn()
         torch.cuda.synchronize()
@@ -460,25 +762,91 @@ def main() -> int:
     time_route("two-phase", two_phase)
     time_route("fallback", fallback)
 
+    ray_stages = (("sort rays", "_sort_rays"), ("phase 1", "_phase1_ray_runs"),
+                  ("B2", "tile_run_counts"), ("regroup", "_regroup_emit_runs"),
+                  ("decode", "_moment_decode"), ("B3", "tile_group_emit"))
+
+    def ray_query(alg=None):
+        return ib.traverse_rays_tiles_fixed(ray_bvh, rp, rd, RAY_CAPACITY,
+                                            alg=alg)
+
+    def ray_stage_ms():
+        """One ray query with CUDA events around the stages the ray module
+        calls by name; what lies between them is "the rest"."""
+        spans, saved = {}, {}
+
+        def timed(label, fn):
+            def call(*args, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*args, **kw)
+                e1.record()
+                spans[label] = (e0, e1)
+                return out
+            return call
+
+        for label, name in ray_stages:
+            saved[name] = getattr(ray_tiles, name)
+            setattr(ray_tiles, name, timed(label, saved[name]))
+        try:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            ray_query()
+            b.record()
+            b.synchronize()
+        finally:
+            for name, fn in saved.items():
+                setattr(ray_tiles, name, fn)
+        t = {label: e0.elapsed_time(e1) for label, (e0, e1) in spans.items()}
+        t["the rest"] = a.elapsed_time(b) - sum(t.values())
+        return t
+
+    ray_ms = time_ms(ray_query)
+    log(f"time: ray query end to end, two-phase ({N_RAYS} rays, "
+        f"{N_RAY_TRIS} leaves): {ray_ms:.4f} ms [{card}]")
+    stages = [ray_stage_ms() for _ in range(7)]
+    log("time: ray stages (median of 7) "
+        + ", ".join(f"{n} {statistics.median(t[n] for t in stages):.4f} ms"
+                    for n in stages[0]) + f" [{card}]")
+    host = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        ray_query()
+        host.append((time.perf_counter() - h0) * 1e3)
+    torch.cuda.synchronize()
+    log(f"time: host enqueue of one ray query: {statistics.median(host):.4f} "
+        f"ms (median of 7) [{card}]")
+    profile_step(torch, ray_query, ray_ms, "ray two-phase", card)
+    rayfb_ms = time_ms(lambda: ray_query(ray_fallback), reps=3)
+    log(f"time: ray query end to end, fallback {FALLBACK}: {rayfb_ms:.4f} ms "
+        f"(median of 3) [{card}]")
+
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def slot_tests(ti, tj, band, live, G):
+    def slot_tests(ti, tj, band, live, G, dedup):
         """Leaf tests of the slot kernels: G per live row of a live entry,
-        the rows after it on a diagonal (ti == tj) entry."""
+        under dedup the rows after it on a diagonal (ti == tj) entry."""
         BH = G // 4
         rows = torch.arange(G, device=dev).view(4, BH)
         per_band = torch.stack([torch.full((4,), BH * G, device=dev),
                                 (G - 1 - rows).sum(1)])        # (2, 4)
         bits = torch.stack([(band >> r) & 1 for r in range(4)], 1)
-        t = (bits * per_band[(ti == tj).long()]).sum(1)
+        diag = (ti == tj) & bool(dedup)
+        t = (bits * per_band[diag.long()]).sum(1)
         return int((t * live).sum())
 
     def bound(name, args, kw):
-        """(bound_ms, bound_by): the larger of the bytes over the memory
-        rate (inputs read once, outputs written once) and the float
-        operations this run's data needs over the fp32 rate."""
-        ops_n = 0
+        """(bytes_ms, operations_ms, live_bytes_ms): the bytes over the
+        memory rate (inputs read once, outputs written once) and the float
+        operations this run's data needs over the fp32 rate; the bound is
+        the larger.  ``live_bytes_ms`` is, for B2 with moments, the bytes
+        term with only the word plane's rows of live (step, w, t) slots
+        counted as written, else None."""
+        ops_n, live_b = 0, None
         if name == "subtile_band_bits":
             sub, tl, si, sj, nsp = args
             out_b = si.shape[0] * 32 * 32 * 4
@@ -492,13 +860,32 @@ def main() -> int:
             ops_n = int(valid.sum()) * sub.shape[2] * 6
             b = nbytes(sub, tl, si, sj, nsp) + out_b
         elif name == "tile_run_counts":
-            a_idx, run_idx, bm, nsteps, fields = args
-            b = nbytes(a_idx, run_idx, bm, nsteps, fields) + \
-                2 * run_idx.shape[0] * kw["R"] * 4
-            ops_n = float(num_checks) * FLOPS_PER_TEST[kw["mask_kind"]]
+            # the tests of the live steps' live bands (the path's
+            # num_checks); with moments the whole word plane is written
+            a_idx, run_idx, bm, nsteps, *fields = args
+            G = fields[0].shape[2]
+            W = run_idx.shape[0] // a_idx.shape[0]
+            step_live = (torch.arange(run_idx.shape[0], device=dev) // W) < \
+                nsteps.clamp(max=a_idx.shape[0])
+            tests = int((tiles._popcount(bm) * step_live).sum()) * \
+                (G // kw["NB"]) * G
+            rows_out = run_idx.shape[0] * kw["R"]
+            b = nbytes(a_idx, run_idx, bm, nsteps, *set(fields)) + \
+                2 * rows_out * 4 + \
+                (rows_out * 128 * 4 if kw.get("moments") else 0)
+            ops_n = tests * FLOPS_PER_TEST[kw["mask_kind"]]
+            if kw.get("moments"):
+                t = torch.arange(kw["R"], device=dev)
+                per_word = 32 // kw["NB"]
+                bands = (bm[t // per_word].T >> (kw["NB"] * (t % per_word))) \
+                    & ((1 << kw["NB"]) - 1)                    # (slots, R)
+                tj = (run_idx & 0xFFFF)[:, None] * kw["R"] + t
+                rows_live = int(((bands != 0) & step_live[:, None]
+                                 & (tj < fields[-1].shape[1])).sum())
+                live_b = b - (rows_out - rows_live) * 128 * 4
         elif name == "tile_group_emit":
-            a_idx, b_idx, nsteps, fields = args
-            G = fields.shape[2]
+            a_idx, b_idx, nsteps, *fields = args
+            G = fields[0].shape[2]
             W = b_idx.shape[0] // a_idx.shape[0]
             e = torch.arange(b_idx.shape[0], device=dev)
             live = (((b_idx >> 20) & 0xFF) > 0) & \
@@ -507,7 +894,8 @@ def main() -> int:
             nbands = sum(((band >> k) & 1) for k in range(4))
             tests = int((nbands * live).sum()) * (G // 4) * G
             ops_n = tests * FLOPS_PER_TEST[kw["mask_kind"]]
-            b = nbytes(a_idx, b_idx, nsteps, fields) + 2 * kw["CAP"] * 4 + 4
+            b = nbytes(a_idx, b_idx, nsteps, *set(fields)) + \
+                2 * kw["CAP"] * 4 + 4
         elif name == "tile_compact":
             # the mask is read in full, each payload only in the 32-byte
             # sectors that hold a kept survivor; the slots are zeroed and
@@ -526,38 +914,61 @@ def main() -> int:
                 (len(payloads) * kw["cap"] + 2) * tiles_n * 4
         else:  # the slot kernels: the lanes below each count are written
             if name == "tile_group_contacts":
-                a_idx, b_idx, nsteps, fields = args
+                a_idx, b_idx, nsteps, *fields = args
                 W = b_idx.shape[0] // a_idx.shape[0]
                 e = torch.arange(b_idx.shape[0], device=dev)
                 ti, tj = a_idx[e // W], b_idx & 0xFFFF
                 band = (b_idx >> 16) & 0xF
                 live = (e // W) < nsteps.clamp(max=a_idx.shape[0])
-                ins = (a_idx, b_idx, nsteps, fields)
+                ins = (a_idx, b_idx, nsteps, *set(fields))
             else:
-                packed, npairs, fields = args
+                packed, npairs, *fields = args
                 ti, tj = (packed >> 16) & 0xFFFF, packed & 0xFFFF
                 band = torch.full_like(ti, 0xF)
                 live = torch.arange(packed.shape[0], device=dev) < npairs
-                ins = (packed, npairs, fields)
-            T, G = fields.shape[1], fields.shape[2]
-            live = live & (ti < T) & (tj < T) & (ti <= tj)
-            ops_n = slot_tests(ti, tj, band, live, G) * \
+                ins = (packed, npairs, *set(fields))
+            fa, fb = fields[0], fields[-1]      # the a set, the b set
+            G = fa.shape[2]
+            live = live & (ti < fa.shape[1]) & (tj < fb.shape[1])
+            if kw["dedup"]:
+                live = live & (ti <= tj)
+            ops_n = slot_tests(ti, tj, band, live, G, kw["dedup"]) * \
                 FLOPS_PER_TEST[kw["mask_kind"]]
             counts = kernels[name][0](*args, **kw)[2]
             lanes = int(counts.clamp(max=kw["CAP_PAIR"]).sum())
             b = nbytes(*ins) + 4 * counts.numel() + 4 + 2 * 4 * lanes
-        t_bytes = b / HBM_BYTES_PER_S * 1e3
-        t_ops = ops_n / FP32_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return (b / HBM_BYTES_PER_S * 1e3, ops_n / FP32_OPS_PER_S * 1e3,
+                None if live_b is None else live_b / HBM_BYTES_PER_S * 1e3)
 
     launches = dict(launches_fb)
     launches.update({n: launches_2p[n] for n in two_phase_kernels})
+    # every kernel at its self-contact inputs, then its variants: B2 with
+    # moment words at the bench scene; the ray_sphere variants at the
+    # full-width ray scene and the ray_box ones at the box-leaf scene, each
+    # with the launches counted in its route's run (B6 is on no path: its
+    # count over both routes' runs)
+    row_specs = [(name, inputs[name], launches[name]) for name in kernels]
+    row_specs.append(("tile_run_counts", seen_dec["tile_run_counts"],
+                      launches_dec["tile_run_counts"]))
+    for seen, l2p, lfb in ((seen_ray, launches_ray, launches_rayfb),
+                           (seen_box, launches_box["two-phase"],
+                            launches_box["fallback"])):
+        row_specs += [(n, seen[n], l2p[n]) for n in ray_two_phase_kernels]
+        slot_args, slot_kw = seen["tile_group_contacts"]
+        row_specs += [
+            ("tile_group_contacts", seen["tile_group_contacts"],
+             lfb["tile_group_contacts"]),
+            ("tile_pair_contacts", (ray_pair_list(slot_args), slot_kw),
+             l2p["tile_pair_contacts"] + lfb["tile_pair_contacts"])]
     rows = []
-    for name, (wrapper, plain, source, replaces) in kernels.items():
-        args, kw = inputs[name]
+    for name, (args, kw), n_launches in row_specs:
+        wrapper, plain, source, replaces = kernels[name]
+        row = row_of(name, kw)
         k_ms = time_ms(lambda: wrapper(*args, **kw))
         p_ms = time_ms(lambda: plain(*args, **kw), reps=3)
-        b_ms, b_by = bound(name, args, kw)
+        bytes_ms, ops_ms, live_ms = bound(name, args, kw)
+        b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
+            (ops_ms, "operations")
         lib_ms = None
         if name == "tile_compact":
             # yardstick only: the same survivors, in the same order when
@@ -572,14 +983,18 @@ def main() -> int:
                                    len(payloads), -1)):
                 raise AssertionError("tile_compact + finish_compact differ "
                                      "from torch.masked_select")
-        log(f"time: {name} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        log(f"time: {row} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            f"launches {launches[name]}, bound {b_ms:.6f} ms ({b_by}) "
-            f"[{card}]")
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            f"launches {n_launches}, bound {b_ms:.6f} ms ({b_by}; bytes "
+            f"{bytes_ms:.6f}, operations {ops_ms:.6f}"
+            + ("" if live_ms is None else
+               f", bytes with only the live word rows {live_ms:.6f}")
+            + f") [{card}]")
+        rows.append({"name": row, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": n_launches,
+                     "max_abs_err": errs[row], "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
                      "library_ms": lib_ms})
 
     print(json.dumps({"kernels": rows}), flush=True)

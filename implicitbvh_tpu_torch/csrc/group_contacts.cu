@@ -2,15 +2,19 @@
 //
 // Replaces implicitbvh_tpu/ops/tile_contact.py:tile_group_contacts
 // (_group_kernel, _pair_compact_vrows) through group_contacts_launch, and
-// tile_pair_contacts (_pair_kernel) through pair_contacts_launch.  Entry e
-// is one (a-tile ti, b-tile tj) pair with a 4-bit mask of the a-tile's live
+// tile_pair_contacts (_pair_kernel) through pair_contacts_launch, on all four
+// masks (sphere, box, ray_box, ray_sphere) with one or two field sets: ti
+// indexes the a set (Ta tiles), tj the b set (Tb tiles).  Entry e is one
+// (a-tile ti, b-tile tj) pair with a 4-bit mask of the a-tile's live
 // bands: in the grouped form ti = a_idx[e / W] and b_idx[e] packs
 // tj | band << 16 (steps past nsteps, read on the device, are dead); in the
 // packed form packed[e] = ti << 16 | tj, every band is live and entries past
-// npairs are dead.  Under dedup only tj*G + j > ti*G + i counts.
+// npairs are dead.  Under dedup (one field set) only tj*G + j > ti*G + i
+// counts.
 //
 // One block per entry, one thread per a-row i: the b-tile's fields sit in
-// shared memory and row i's in registers.  Pass 1 tests row i against the
+// shared memory and row i's in registers, prepared once (a ray's reciprocals
+// or d.d).  Pass 1 tests row i against the
 // b-tile (dead bands cost a branch) and counts it; a block scan gives the
 // exclusive row offsets and the pair's uncapped count, which is written
 // with the overflow flag (count > CAP_PAIR, or a row over ROW_CAP).  Pass 2
@@ -23,8 +27,9 @@
 // contractions.
 //
 // Bound on the H100: operations, num_checks leaf tests of ~11 flops
-// (sphere) or 6 comparisons (box) against a few MB of reads and the few
-// written slots.  Most pairs have no contacts and cost one pass.
+// (sphere), 6 comparisons (box) or some 30 operations (rays) against a few
+// MB of reads and the few written slots.  Most pairs have no contacts and
+// cost one pass.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -33,33 +38,21 @@ namespace {
 
 constexpr int BANDS = 4;
 
-// a-row (registers) against b-leaf j (shared memory, field-major, pitch G).
-template <bool BOX>
-__device__ __forceinline__ bool row_hit(const float* a, const float* b_s,
-                                        int G, int j) {
-  if constexpr (BOX) {
-    float b[6];
-#pragma unroll
-    for (int f = 0; f < 6; ++f) b[f] = b_s[f * G + j];
-    return ibvh::box_hit(a, b);
-  }
-  return ibvh::sphere_hit(a[0], a[1], a[2], a[3], b_s[j], b_s[G + j],
-                          b_s[2 * G + j], b_s[3 * G + j]);
-}
-
-template <bool BOX, bool PACKED>
+template <int KIND, bool PACKED>
 __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
                                      const int* __restrict__ b_idx,
                                      const int* __restrict__ nlive,
-                                     const float* __restrict__ fields,
+                                     const float* __restrict__ a_fields,
+                                     const float* __restrict__ b_fields,
                                      int* __restrict__ gi,
                                      int* __restrict__ gj,
                                      int* __restrict__ counts,
                                      int* __restrict__ over, int n_entries,
-                                     int W, int T, int dedup, int row_cap,
-                                     int cap_pair) {
-  constexpr int F = BOX ? 6 : 4;
-  extern __shared__ float b_s[];  // [F][G]
+                                     int W, int Ta, int Tb, int dedup,
+                                     int row_cap, int cap_pair) {
+  constexpr int AP = ibvh::Mask<KIND>::AP;
+  constexpr int FB = ibvh::Mask<KIND>::FB;
+  extern __shared__ float b_s[];  // [FB][G]
   __shared__ int scan_sh[32];
   const int G = blockDim.x;
   const int e = blockIdx.x;
@@ -81,17 +74,19 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
     tj = bw & 0xFFFF;
     band = (bw >> 16) & ((1 << BANDS) - 1);
   }
-  live = live && band != 0 && ti < T && tj < T && !(dedup && ti > tj);
+  live = live && band != 0 && ti < Ta && tj < Tb && !(dedup && ti > tj);
   if (!live) {  // uniform over the block
     if (i == 0) counts[e] = 0;
     return;
   }
 
-  float a[F];
+  float a[AP];
+  ibvh::load_a_row<KIND>(a_fields, Ta, G, ti, i, a);
+  {
+    float b[FB];
+    ibvh::load_b_leaf<KIND>(b_fields, Tb, G, tj, i, b);
 #pragma unroll
-  for (int f = 0; f < F; ++f) {
-    a[f] = fields[((size_t)f * T + ti) * G + i];
-    b_s[f * G + i] = fields[((size_t)f * T + tj) * G + i];
+    for (int f = 0; f < FB; ++f) b_s[f * G + i] = b[f];
   }
   __syncthreads();
 
@@ -99,7 +94,7 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
   const int j0 = (dedup && ti == tj) ? i + 1 : 0;
   int c = 0;
   if (row_live) {
-    for (int j = j0; j < G; ++j) c += row_hit<BOX>(a, b_s, G, j);
+    for (int j = j0; j < G; ++j) c += ibvh::row_hit<KIND>(a, b_s, G, j);
   }
   const int row_off = ibvh::block_exclusive_scan(c, scan_sh);
   const int total = scan_sh[(G >> 5) - 1];
@@ -115,7 +110,7 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
   int* gj_e = gj + (size_t)e * cap_pair;
   int k = 0;
   for (int j = j0; j < G && k < lim && row_off + k < cap_pair; ++j) {
-    if (row_hit<BOX>(a, b_s, G, j)) {
+    if (ibvh::row_hit<KIND>(a, b_s, G, j)) {
       gi_e[row_off + k] = ti * G + i;
       gj_e[row_off + k] = tj * G + j;
       ++k;
@@ -129,49 +124,57 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
 }
 
 int launch(bool packed, const void* a_idx, const void* b_idx,
-           const void* nlive, const void* fields, void* gi, void* gj,
-           void* counts, void* over, int n_entries, int W, int T, int G,
-           int box, int dedup, int row_cap, int cap_pair, void* stream) {
+           const void* nlive, const void* a_fields, const void* b_fields,
+           void* gi, void* gj, void* counts, void* over, int n_entries,
+           int W, int Ta, int Tb, int G, int kind, int dedup, int row_cap,
+           int cap_pair, void* stream) {
   if (G % 32 != 0 || G < 32 || G > 1024 || W < 1 || n_entries % W != 0 ||
       row_cap < 1 || cap_pair < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t shmem = (size_t)(box ? 6 : 4) * G * sizeof(float);
+  const size_t shmem = (size_t)ibvh::b_fields_of(kind) * G * sizeof(float);
   if (n_entries > 0) {
-    auto kern = box ? (packed ? slot_contacts_kernel<true, true>
-                              : slot_contacts_kernel<true, false>)
-                    : (packed ? slot_contacts_kernel<false, true>
-                              : slot_contacts_kernel<false, false>);
-    kern<<<n_entries, G, shmem, (cudaStream_t)stream>>>(
-        (const int*)a_idx, (const int*)b_idx, (const int*)nlive,
-        (const float*)fields, (int*)gi, (int*)gj, (int*)counts, (int*)over,
-        n_entries, W, T, dedup, row_cap, cap_pair);
+    IBVH_DISPATCH_KIND(kind, {
+      auto kern = packed ? slot_contacts_kernel<KIND, true>
+                         : slot_contacts_kernel<KIND, false>;
+      kern<<<n_entries, G, shmem, (cudaStream_t)stream>>>(
+          (const int*)a_idx, (const int*)b_idx, (const int*)nlive,
+          (const float*)a_fields, (const float*)b_fields, (int*)gi, (int*)gj,
+          (int*)counts, (int*)over, n_entries, W, Ta, Tb, dedup, row_cap,
+          cap_pair);
+    })
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a_idx: (S_cap,) i32; b_idx: (S_cap*W,) i32; nsteps: (1,) i32; fields:
-// (4 or 6, T, G) f32; gi, gj: (S_cap*W, cap_pair) i32; counts: (S_cap*W,)
-// i32; over: (1,) i32, zeroed by the caller.  G is the block size (a
-// multiple of 32, at most 1024).  Returns cudaGetLastError().
+// a_idx: (S_cap,) i32; b_idx: (S_cap*W,) i32; nsteps: (1,) i32; a_fields:
+// (FA, Ta, G) f32; b_fields: (FB, Tb, G) f32 (may be a_fields); gi, gj:
+// (S_cap*W, cap_pair) i32; counts: (S_cap*W,) i32; over: (1,) i32, zeroed by
+// the caller.  kind: 0 sphere, 1 box, 2 ray_box, 3 ray_sphere.  G is the
+// block size (a multiple of 32, at most 1024).  Returns cudaGetLastError().
 extern "C" int group_contacts_launch(const void* a_idx, const void* b_idx,
-                                     const void* nsteps, const void* fields,
-                                     void* gi, void* gj, void* counts,
-                                     void* over, int S_cap, int W, int T,
-                                     int G, int box, int dedup, int row_cap,
-                                     int cap_pair, void* stream) {
-  return launch(false, a_idx, b_idx, nsteps, fields, gi, gj, counts, over,
-                S_cap * W, W, T, G, box, dedup, row_cap, cap_pair, stream);
+                                     const void* nsteps, const void* a_fields,
+                                     const void* b_fields, void* gi, void* gj,
+                                     void* counts, void* over, int S_cap,
+                                     int W, int Ta, int Tb, int G, int kind,
+                                     int dedup, int row_cap, int cap_pair,
+                                     void* stream) {
+  return launch(false, a_idx, b_idx, nsteps, a_fields, b_fields, gi, gj,
+                counts, over, S_cap * W, W, Ta, Tb, G, kind, dedup, row_cap,
+                cap_pair, stream);
 }
 
 // packed: (P_cap,) i32 ti << 16 | tj; npairs: (1,) i32; the rest as above
 // with P_cap entries.
 extern "C" int pair_contacts_launch(const void* packed, const void* npairs,
-                                    const void* fields, void* gi, void* gj,
+                                    const void* a_fields,
+                                    const void* b_fields, void* gi, void* gj,
                                     void* counts, void* over, int P_cap,
-                                    int T, int G, int box, int dedup,
-                                    int row_cap, int cap_pair, void* stream) {
-  return launch(true, packed, packed, npairs, fields, gi, gj, counts, over,
-                P_cap, 1, T, G, box, dedup, row_cap, cap_pair, stream);
+                                    int Ta, int Tb, int G, int kind,
+                                    int dedup, int row_cap, int cap_pair,
+                                    void* stream) {
+  return launch(true, packed, packed, npairs, a_fields, b_fields, gi, gj,
+                counts, over, P_cap, 1, Ta, Tb, G, kind, dedup, row_cap,
+                cap_pair, stream);
 }

@@ -11,6 +11,9 @@ The dict holds:
 - ``"index"`` (user indices) and ``"morton"`` (codes, any integer type);
 - the BBox node fields ``node_lo0..2, node_up0..2``;
 - ``"skips"``, ``"built_level"`` and ``"num_leaves"``.
+
+``rays_from_numpy`` turns numpy ``(3, N)`` ray origins and directions into
+the port's tensors, so that a test feeds both packages the same arrays.
 """
 
 from __future__ import annotations
@@ -45,3 +48,17 @@ def bvh_from_numpy(d: dict, device=None) -> BVH:
     return BVH(skips=t("skips", torch.int32), nodes=nodes, leaves=leaves,
                built_level=int(d["built_level"]),
                tree=ImplicitTree.from_num_leaves(int(d["num_leaves"])))
+
+
+def rays_from_numpy(points, directions, device=None):
+    """``(points, directions)`` as float32 ``(3, N)`` tensors on ``device``
+    (resolved as in ``utils.resolve_device``: CUDA unless told otherwise)."""
+    dev = resolve_device(device)
+    points = np.asarray(points, np.float32)
+    directions = np.asarray(directions, np.float32)
+    if points.ndim != 2 or points.shape[0] != 3 or \
+            directions.shape != points.shape:
+        raise ValueError(f"rays must be two (3, N) arrays, got "
+                         f"{points.shape} and {directions.shape}")
+    return (torch.tensor(points, device=dev),
+            torch.tensor(directions, device=dev))

@@ -53,9 +53,11 @@ def bounding_volumes_extrema(centers):
     coordinate lies strictly inside [0, 1).  Returns two 3-tuples of 0-dim
     tensors."""
     dt = centers[0].dtype
-    dev = centers[0].device
-    rp = torch.tensor(RELATIVE_PRECISION[dt], dtype=dt, device=dev)
-    tiny = torch.tensor(torch.finfo(dt).tiny, dtype=dt, device=dev)
+    # Python scalars: an op rounds them to the tensors' type, as a 0-dim
+    # tensor of that type would, and nothing is copied to the device (a
+    # host-to-device copy is a host sync)
+    rp = RELATIVE_PRECISION[dt]
+    tiny = torch.finfo(dt).tiny
     mins = tuple(c.min() - rp * c.min().abs() - tiny for c in centers)
     maxs = tuple(c.max() + rp * c.max().abs() + tiny for c in centers)
     return mins, maxs
@@ -87,8 +89,7 @@ class DefaultMortonAlgorithm(MortonAlgorithm):
 def _quantize(c, mn, mx, scaling: int):
     scaled = (c - mn) / (mx - mn)
     # truncation toward zero, like the reference's unsafe_trunc
-    return (scaled * torch.tensor(float(scaling), dtype=c.dtype,
-                                  device=c.device)).to(torch.int64)
+    return (scaled * float(scaling)).to(torch.int64)
 
 
 def morton_encode(centers, alg: DefaultMortonAlgorithm) -> torch.Tensor:

@@ -2,19 +2,25 @@
 
 Replaces, from ``implicitbvh_tpu/ops/tile_contact.py``:
 
-- ``tile_run_counts`` (the two-phase route's count kernel, sphere and box
-  masks, ``with_colmax``) and ``tile_group_emit`` (its emit kernel);
+- ``tile_run_counts`` (the two-phase route's count kernel, with colmax and,
+  under ``moments``, the per-column words of the moment-decode route) and
+  ``tile_group_emit`` (its emit kernel);
 - ``tile_group_contacts`` (the pair-granularity fallback's grouped kernel)
   and ``tile_pair_contacts`` (the same per-pair slot compaction over a
-  packed pair list, which no path calls), sphere and box masks on one field
-  set.
+  packed pair list, which no path calls).
 
-Leaf fields arrive as one ``(F, T, G)`` float32 tensor: F = 4 (sphere
-``x0, x1, x2, r``) or 6 (box ``lo0, lo1, lo2, up0, up1, up2``), T tiles of
-G sorted leaves, padded leaves NaN so that every predicate on them is false.
+Each takes one of four masks (``MASK_FIELD_COUNTS``): ``sphere`` and ``box``
+(leaves against leaves, self-contact) and ``ray_sphere`` and ``ray_box``
+(rays against leaves).  Fields arrive as ``(F, T, G)`` float32 tensors, T
+tiles of G sorted entries: the a set (rows, indexed by ``a_idx``) and the b
+set (columns; the a set itself when ``b_fields`` is not given).  A sphere
+is ``x0, x1, x2, r``, a box ``lo0, lo1, lo2, up0, up1, up2``, a ray ``p0,
+p1, p2, d0, d1, d2``.  Padded entries are NaN, so that every predicate on
+them is false.
 
 All four kernels are bound by operations on the H100 (the leaf tests), not
-by bytes.  The count and emit kernels keep the a-tile in shared memory and
+by bytes, except the count kernel with ``moments``, whose word plane can
+take longer to write than its tests take.  The count and emit kernels keep the a-tile in shared memory and
 one b-leaf per thread in registers; the slot kernels keep the b-tile in
 shared memory and one a-row per thread.  Dead tiles and bands cost a
 branch, counts are reduced and scanned in the block, and contacts are
@@ -26,44 +32,68 @@ from __future__ import annotations
 
 import torch
 
+from ..volumes import _ray_box_test, _ray_sphere_test, _reciprocal
 from . import _build
 
-MASK_FIELD_COUNTS = {"sphere": 4, "box": 6}
+# mask_kind -> (fields of the a set, fields of the b set); the order is the
+# kernels' kind number
+MASK_FIELD_COUNTS = {"sphere": (4, 4), "box": (6, 6), "ray_box": (6, 6),
+                     "ray_sphere": (6, 4)}
+_KIND = {k: n for n, k in enumerate(MASK_FIELD_COUNTS)}
 N_BANDS = 4        # coarse bands of the emit payload
+WORD_LANES = 128   # row width of the moment-word plane
 _CHUNK_TESTS = 1 << 24   # leaf tests per batch in the plain versions
 
 
-def _check_fields(fields, mask_kind):
+def _check_fields(a_fields, b_fields, mask_kind, dedup):
+    """Validate the two field sets; returns the b set (the a set when
+    ``b_fields`` is None)."""
     if mask_kind not in MASK_FIELD_COUNTS:
-        raise ValueError(f"mask_kind must be sphere or box, got {mask_kind!r}")
-    _build.check(fields, "fields", torch.float32)
-    if fields.dim() != 3 or fields.shape[0] != MASK_FIELD_COUNTS[mask_kind]:
-        raise ValueError(f"{mask_kind} fields must be "
-                         f"({MASK_FIELD_COUNTS[mask_kind]}, T, G), "
-                         f"got {tuple(fields.shape)}")
-    G = fields.shape[2]
+        raise ValueError(f"mask_kind must be one of "
+                         f"{sorted(MASK_FIELD_COUNTS)}, got {mask_kind!r}")
+    if b_fields is None:
+        b_fields = a_fields
+    _build.check(a_fields, "a_fields", torch.float32)
+    _build.check(b_fields, "b_fields", torch.float32,
+                 device=a_fields.device)
+    G = a_fields.shape[-1]
+    for f, name, n in zip((a_fields, b_fields), ("a_fields", "b_fields"),
+                          MASK_FIELD_COUNTS[mask_kind]):
+        if f.dim() != 3 or f.shape[0] != n or f.shape[2] != G:
+            raise ValueError(f"{mask_kind} {name} must be ({n}, T, {G}), "
+                             f"got {tuple(f.shape)}")
     if G % 32 or G > 1024:
         raise ValueError(f"tile size {G} must be a multiple of 32, <= 1024")
+    if dedup and b_fields is not a_fields:
+        raise ValueError("dedup (the j > i triangle) needs one field set")
+    return b_fields
 
 
-def _pair_masks(fields, ti, tj, band_bits, NB, mask_kind, dedup):
+def _pair_masks(a_fields, b_fields, ti, tj, band_bits, NB, mask_kind, dedup):
     """(P, G, G) contact masks of a-tiles ``ti`` vs b-tiles ``tj``, rows
     restricted to the live bands of ``band_bits`` (NB bands of G/NB rows),
-    with the j > i dedup on diagonal pairs.  Tiles past T match nothing."""
-    F, T, G = fields.shape
-    a = fields[:, ti.long()][:, :, :, None]                 # (F, P, G, 1)
-    b = fields[:, tj.long().clamp(max=T - 1)][:, :, None, :]  # (F, P, 1, G)
+    with the j > i dedup on diagonal pairs.  B-tiles past Tb match
+    nothing."""
+    Ta, G = a_fields.shape[1], a_fields.shape[2]
+    Tb = b_fields.shape[1]
+    a = a_fields[:, ti.long().clamp(max=Ta - 1)][:, :, :, None]  # (Fa,P,G,1)
+    b = b_fields[:, tj.long().clamp(max=Tb - 1)][:, :, None, :]  # (Fb,P,1,G)
     if mask_kind == "sphere":
         dx, dy, dz = a[0] - b[0], a[1] - b[1], a[2] - b[2]
         rr = a[3] + b[3]
         m = dx * dx + dy * dy + dz * dz <= rr * rr
-    else:
+    elif mask_kind == "box":
         m = (a[3] >= b[0]) & (a[0] <= b[3])
         m &= (a[4] >= b[1]) & (a[1] <= b[4])
         m &= (a[5] >= b[2]) & (a[2] <= b[5])
-    rows = torch.arange(G, device=fields.device)
+    elif mask_kind == "ray_box":
+        m = _ray_box_test(a[:3], [_reciprocal(a[3 + k]) for k in range(3)],
+                         b[:3], b[3:])
+    else:
+        m = _ray_sphere_test(a[:3], a[3:], b[:3], b[3])
+    rows = torch.arange(G, device=a_fields.device)
     live_row = ((band_bits[:, None] >> (rows // (G // NB))) & 1) != 0
-    m &= live_row[:, :, None] & (tj < T)[:, None, None]
+    m = m & live_row[:, :, None] & (tj < Tb)[:, None, None]
     if dedup:
         upper = rows[None, :] > rows[:, None]                 # j > i
         m &= (ti != tj)[:, None, None] | upper
@@ -79,12 +109,12 @@ def _chunks(idx, G):
 # Count kernel
 # ---------------------------------------------------------------------------
 
-def _check_runs(a_idx, run_idx, bm_words, nsteps, fields, R, NB):
-    dev = fields.device
+def _check_runs(a_idx, run_idx, bm_words, nsteps, a_fields, R, NB):
+    dev = a_fields.device
     S_cap = a_idx.shape[0]
     if S_cap == 0 or run_idx.shape[0] % S_cap:
         raise ValueError("run_idx length must be a multiple of len(a_idx)")
-    if NB not in (4, 8, 16) or fields.shape[2] % NB or R % (32 // NB):
+    if NB not in (4, 8, 16) or a_fields.shape[2] % NB or R % (32 // NB):
         raise ValueError(f"bad band layout NB={NB}, R={R}")
     _build.check(a_idx, "a_idx", torch.int32, (S_cap,), dev)
     SW = run_idx.shape[0]
@@ -94,15 +124,18 @@ def _check_runs(a_idx, run_idx, bm_words, nsteps, fields, R, NB):
     return S_cap, SW // S_cap
 
 
-def tile_run_counts_plain(a_idx, run_idx, bm_words, nsteps, fields, *,
-                          mask_kind, R=8, NB=4, dedup=False):
+def tile_run_counts_plain(a_idx, run_idx, bm_words, nsteps, a_fields,
+                          b_fields=None, *, mask_kind, R=8, NB=4,
+                          dedup=False, moments=False):
     """Plain PyTorch version of :func:`tile_run_counts`."""
+    if b_fields is None:
+        b_fields = a_fields
     S_cap = a_idx.shape[0]
     SW = run_idx.shape[0]
     W = SW // S_cap
-    T, G = fields.shape[1], fields.shape[2]
+    T, G = b_fields.shape[1], a_fields.shape[2]
     TPW = 32 // NB
-    dev = fields.device
+    dev = a_fields.device
     slot = torch.arange(SW, device=dev)
     t = torch.arange(R, device=dev)
     words = bm_words[t // TPW].T                              # (SW, R)
@@ -113,18 +146,30 @@ def tile_run_counts_plain(a_idx, run_idx, bm_words, nsteps, fields, *,
     ti = a_idx[slot // W][:, None].expand(SW, R)
     counts = torch.zeros(SW * R, dtype=torch.int32, device=dev)
     colmax = torch.zeros(SW * R, dtype=torch.int32, device=dev)
+    words = torch.zeros((SW * R, WORD_LANES), dtype=torch.int32,
+                        device=dev) if moments else None
     idx = live.reshape(-1).nonzero().squeeze(1)
     ti, tj, bmt = ti.reshape(-1), tj.reshape(-1), bmt.reshape(-1)
+    row = torch.arange(G, dtype=torch.int32, device=dev)[None, :, None]
     for c in _chunks(idx, G):
-        col = _pair_masks(fields, ti[c], tj[c], bmt[c], NB, mask_kind,
-                          dedup).sum(1, dtype=torch.int32)    # (P, G)
+        m = _pair_masks(a_fields, b_fields, ti[c], tj[c], bmt[c], NB,
+                        mask_kind, dedup)                     # (P, G, G)
+        col = m.sum(1, dtype=torch.int32)                     # (P, G)
         counts[c] = col.sum(1, dtype=torch.int32)
         colmax[c] = col.amax(1)
+        if moments:
+            si = (m * row).sum(1, dtype=torch.int32)
+            sq = (m * (row * row)).sum(1, dtype=torch.int32)
+            words[c, :G] = (col << 23) | torch.where(col <= 2,
+                                                     (si << 15) + sq, 0)
+    if moments:
+        return counts, colmax, words
     return counts, colmax
 
 
-def tile_run_counts(a_idx, run_idx, bm_words, nsteps, fields, *,
-                    mask_kind, R=8, NB=4, dedup=False):
+def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
+                    b_fields=None, *, mask_kind, R=8, NB=4, dedup=False,
+                    moments=False):
     """Exact contact counts of every (step, w, t) tile pair of a run list.
 
     - ``a_idx``: (S_cap,) int32 a-tile per step.
@@ -133,35 +178,52 @@ def tile_run_counts(a_idx, run_idx, bm_words, nsteps, fields, *,
     - ``bm_words``: (R*NB/32, S_cap*W) int32 band words, NB bits per tile,
       32/NB tiles per word; a zero tile is skipped.
     - ``nsteps``: (1,) int32 live steps (read on the device).
-    - ``fields``: (F, T, G) float32 leaf fields.
+    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) float32 field
+      sets of the mask (``b_fields`` defaults to ``a_fields``).
+    - ``dedup``: the j > i triangle on diagonal pairs (one field set only).
 
     Returns ``(counts, colmax)``, each (S_cap*W*R,) int32 in (step, w, t)
-    order: a pair's contact count and its largest per-column count.
+    order: a pair's contact count and its largest per-column count.  With
+    ``moments`` (tiles of at most 128) it also returns the (S_cap*W*R, 128)
+    int32 word plane: for b-column j of a pair, with cc hits at a-rows i,
+    ``cc << 23 | (sum i << 15) + sum i^2`` when cc <= 2 and ``cc << 23``
+    otherwise; dead pairs, pad steps and lanes >= G are zero.
 
     Replaces ``implicitbvh_tpu/ops/tile_contact.py:tile_run_counts``
     (``_run_count_kernel``).  On the H100 it is bound by operations (the
-    leaf tests of the live bands, ``num_checks``); ``csrc/run_counts.cu``
-    tests only those bands and reduces each pair in its block.
+    leaf tests of the live bands, ``num_checks``) or, with ``moments``, by
+    the bytes of the word plane; ``csrc/run_counts.cu`` tests only the live
+    bands, reduces each pair in its block and writes every row of the plane
+    itself, so the plane is allocated uninitialised.
     """
-    _check_fields(fields, mask_kind)
-    S_cap, W = _check_runs(a_idx, run_idx, bm_words, nsteps, fields, R, NB)
-    if not _build.cuda_device(fields):
-        return tile_run_counts_plain(a_idx, run_idx, bm_words, nsteps,
-                                     fields, mask_kind=mask_kind, R=R, NB=NB,
-                                     dedup=dedup)
+    b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
+    S_cap, W = _check_runs(a_idx, run_idx, bm_words, nsteps, a_fields, R, NB)
+    G = a_fields.shape[2]
+    if moments and G > WORD_LANES:
+        raise ValueError(f"moments need a tile size <= {WORD_LANES}, got {G}")
+    if not _build.cuda_device(a_fields):
+        return tile_run_counts_plain(
+            a_idx, run_idx, bm_words, nsteps, a_fields, b_fields,
+            mask_kind=mask_kind, R=R, NB=NB, dedup=dedup, moments=moments)
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("run_counts", "run_counts_launch",
-                          [P] * 7 + [I] * 8 + [P])
-    dev = fields.device
+                          [P] * 9 + [I] * 9 + [P])
+    dev = a_fields.device
     counts = torch.empty(S_cap * W * R, dtype=torch.int32, device=dev)
     colmax = torch.empty_like(counts)
+    words = torch.empty((S_cap * W * R, WORD_LANES), dtype=torch.int32,
+                        device=dev) if moments else None
     with torch.cuda.device(dev):
         _build.launch(fn, "run_counts", a_idx.data_ptr(), run_idx.data_ptr(),
                       bm_words.data_ptr(), nsteps.data_ptr(),
-                      fields.data_ptr(), counts.data_ptr(),
-                      colmax.data_ptr(), S_cap, W, R, NB, fields.shape[1],
-                      fields.shape[2], int(mask_kind == "box"), int(dedup))
+                      a_fields.data_ptr(), b_fields.data_ptr(),
+                      counts.data_ptr(), colmax.data_ptr(),
+                      words.data_ptr() if moments else None, S_cap, W, R, NB,
+                      a_fields.shape[1], b_fields.shape[1], G,
+                      _KIND[mask_kind], int(dedup))
     tile_run_counts.launches += 1
+    if moments:
+        return counts, colmax, words
     return counts, colmax
 
 
@@ -187,14 +249,17 @@ def _emit_flags(total, row_over, CAP):
     return (total > CAP).int() | ((row_over[0] > 0).int() << 1)
 
 
-def tile_group_emit_plain(a_idx, b_idx, nsteps, fields, *, mask_kind,
-                          ROW_CAP=4, CAP_PAIR=32, dedup=False, CAP=1 << 17):
+def tile_group_emit_plain(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
+                          mask_kind, ROW_CAP=4, CAP_PAIR=32, dedup=False,
+                          CAP=1 << 17):
     """Plain PyTorch version of :func:`tile_group_emit` (same offsets, same
     column-major order within a pair)."""
+    if b_fields is None:
+        b_fields = a_fields
     S_cap = a_idx.shape[0]
     W = b_idx.shape[0] // S_cap
-    G = fields.shape[2]
-    dev = fields.device
+    G = a_fields.shape[2]
+    dev = a_fields.device
     offs, total = _emit_offsets(b_idx, nsteps, S_cap, W, CAP_PAIR)
     gi = torch.zeros(CAP, dtype=torch.int32, device=dev)
     gj = torch.zeros(CAP, dtype=torch.int32, device=dev)
@@ -207,8 +272,8 @@ def tile_group_emit_plain(a_idx, b_idx, nsteps, fields, *, mask_kind,
     for c in _chunks(live.nonzero().squeeze(1), G):
         bw = b_idx[c]
         ti, tj = a_idx[c // W], bw & 0xFFFF
-        m = _pair_masks(fields, ti, tj, (bw >> 16) & 0xF, N_BANDS,
-                        mask_kind, dedup)                       # (P, G, G)
+        m = _pair_masks(a_fields, b_fields, ti, tj, (bw >> 16) & 0xF,
+                        N_BANDS, mask_kind, dedup)              # (P, G, G)
         slow = (cnt[c] >= 2) & (((bw >> 28) & 1) == 0)
         over = slow & (m.sum(2) > ROW_CAP).any(1)
         row_over |= over.any().int()
@@ -223,8 +288,9 @@ def tile_group_emit_plain(a_idx, b_idx, nsteps, fields, *, mask_kind,
     return gi, gj, total, _emit_flags(total, row_over, CAP)
 
 
-def tile_group_emit(a_idx, b_idx, nsteps, fields, *, mask_kind, ROW_CAP=4,
-                    CAP_PAIR=32, dedup=False, CAP=1 << 17):
+def tile_group_emit(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
+                    mask_kind, ROW_CAP=4, CAP_PAIR=32, dedup=False,
+                    CAP=1 << 17):
     """Dense contact stream of pre-counted tile pairs.
 
     - ``a_idx``: (S_cap,) int32 a-tile per step.
@@ -232,14 +298,16 @@ def tile_group_emit(a_idx, b_idx, nsteps, fields, *, mask_kind, ROW_CAP=4,
       okc << 28``: b-tile, 4 coarse live bands, exact count (<= 255) and
       the colmax <= 2 flag; pad entries carry cnt = 0.
     - ``nsteps``: (1,) int32 live steps (read on the device).
-    - ``fields``: (F, T, G) float32 leaf fields.
+    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) float32 field
+      sets of the mask (``b_fields`` defaults to ``a_fields``).
 
     Returns ``(gi, gj, total, flags)``: the first ``total`` entries of the
     (CAP,) int32 ``gi``/``gj`` are the global sorted positions of every
-    contact, pairs in entry order and column-major within a pair (at most
+    contact (``ti*G + i`` in the a set, ``tj*G + j`` in the b set), pairs
+    in entry order and column-major within a pair (at most
     ``min(cnt, CAP_PAIR)`` per pair).  ``flags`` bit 0: ``total > CAP``;
     bit 1: a pair with ``cnt >= 2`` and ``okc == 0`` has a row holding more
-    than ``ROW_CAP`` contacts.
+    than ``ROW_CAP`` contacts (with a ray mask a row is a ray).
 
     Replaces ``implicitbvh_tpu/ops/tile_contact.py:tile_group_emit``
     (``_group_emit_kernel``).  On the H100 it is bound by operations (the
@@ -247,8 +315,8 @@ def tile_group_emit(a_idx, b_idx, nsteps, fields, *, mask_kind, ROW_CAP=4,
     one block per live pair and writes at offsets scanned from the exact
     counts, in place of the TPU kernel's cursor and one-hot compaction.
     """
-    _check_fields(fields, mask_kind)
-    dev = fields.device
+    b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
+    dev = a_fields.device
     S_cap = a_idx.shape[0]
     if S_cap == 0 or b_idx.shape[0] % S_cap:
         raise ValueError("b_idx length must be a multiple of len(a_idx)")
@@ -260,23 +328,25 @@ def tile_group_emit(a_idx, b_idx, nsteps, fields, *, mask_kind, ROW_CAP=4,
     _build.check(nsteps, "nsteps", torch.int32, (1,), dev)
     kw = dict(mask_kind=mask_kind, ROW_CAP=ROW_CAP, CAP_PAIR=CAP_PAIR,
               dedup=dedup, CAP=CAP)
-    if not _build.cuda_device(fields):
-        return tile_group_emit_plain(a_idx, b_idx, nsteps, fields, **kw)
+    if not _build.cuda_device(a_fields):
+        return tile_group_emit_plain(a_idx, b_idx, nsteps, a_fields,
+                                     b_fields, **kw)
     W = b_idx.shape[0] // S_cap
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("group_emit", "group_emit_launch",
-                          [P] * 8 + [I] * 9 + [P])
+                          [P] * 9 + [I] * 10 + [P])
     offs, total = _emit_offsets(b_idx, nsteps, S_cap, W, CAP_PAIR)
     gi = torch.zeros(CAP, dtype=torch.int32, device=dev)
     gj = torch.zeros(CAP, dtype=torch.int32, device=dev)
     row_over = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _build.launch(fn, "group_emit", a_idx.data_ptr(), b_idx.data_ptr(),
-                      nsteps.data_ptr(), offs.data_ptr(), fields.data_ptr(),
+                      nsteps.data_ptr(), offs.data_ptr(),
+                      a_fields.data_ptr(), b_fields.data_ptr(),
                       gi.data_ptr(), gj.data_ptr(), row_over.data_ptr(),
-                      S_cap, W, fields.shape[1], fields.shape[2],
-                      int(mask_kind == "box"), int(dedup), ROW_CAP, CAP_PAIR,
-                      CAP)
+                      S_cap, W, a_fields.shape[1], b_fields.shape[1],
+                      a_fields.shape[2], _KIND[mask_kind], int(dedup),
+                      ROW_CAP, CAP_PAIR, CAP)
     tile_group_emit.launches += 1
     return gi, gj, total, _emit_flags(total, row_over, CAP)
 
@@ -294,22 +364,23 @@ def _check_slot_caps(ROW_CAP, CAP_PAIR):
                          f"{ROW_CAP}, {CAP_PAIR}")
 
 
-def _slot_contacts_plain(fields, ti, tj, band, live, *, mask_kind, ROW_CAP,
-                         CAP_PAIR, dedup):
+def _slot_contacts_plain(a_fields, b_fields, ti, tj, band, live, *,
+                         mask_kind, ROW_CAP, CAP_PAIR, dedup):
     """Row-major contact slots of the pairs ``(ti[e], tj[e])`` where
     ``live``: the s-th contact of a-row i (b-lane order), s < ROW_CAP, goes
     to lane ``row_off[i] + s`` if below CAP_PAIR.  Lanes that no contact
     fills hold -1.  Returns ``(gi, gj, counts, overflow)``."""
     n = ti.shape[0]
-    G = fields.shape[2]
-    dev = fields.device
+    G = a_fields.shape[2]
+    dev = a_fields.device
     gi = torch.full((n, CAP_PAIR), -1, dtype=torch.int32, device=dev)
     gj = torch.full((n, CAP_PAIR), -1, dtype=torch.int32, device=dev)
     counts = torch.zeros(n, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     for c in _chunks(live.nonzero().squeeze(1), G):
         tic, tjc = ti[c], tj[c]
-        m = _pair_masks(fields, tic, tjc, band[c], N_BANDS, mask_kind, dedup)
+        m = _pair_masks(a_fields, b_fields, tic, tjc, band[c], N_BANDS,
+                        mask_kind, dedup)
         if dedup:          # global sorted order j > i: nothing when ti > tj
             m &= (tic <= tjc)[:, None, None]
         rc = m.sum(2, dtype=torch.int32)                      # (P, G) rows
@@ -329,37 +400,43 @@ def _slot_contacts_plain(fields, ti, tj, band, live, *, mask_kind, ROW_CAP,
     return gi, gj, counts, overflow
 
 
-def tile_group_contacts_plain(a_idx, b_idx, nsteps, fields, *, mask_kind,
-                              ROW_CAP=4, CAP_PAIR=16, dedup=True):
+def tile_group_contacts_plain(a_idx, b_idx, nsteps, a_fields, b_fields=None,
+                              *, mask_kind, ROW_CAP=4, CAP_PAIR=16,
+                              dedup=True):
     """Plain PyTorch version of :func:`tile_group_contacts` (every lane
     that no contact fills holds -1)."""
-    S_cap, T = a_idx.shape[0], fields.shape[1]
+    if b_fields is None:
+        b_fields = a_fields
+    S_cap = a_idx.shape[0]
     step = torch.arange(b_idx.shape[0], device=b_idx.device) // \
         (b_idx.shape[0] // S_cap)
     ti = a_idx[step]
     tj = b_idx & 0xFFFF
     band = (b_idx >> 16) & ((1 << N_BANDS) - 1)
-    live = (step < nsteps.clamp(max=S_cap)) & (band != 0) & (ti < T) & \
-        (tj < T)
-    return _slot_contacts_plain(fields, ti, tj, band, live,
+    live = (step < nsteps.clamp(max=S_cap)) & (band != 0) & \
+        (ti < a_fields.shape[1]) & (tj < b_fields.shape[1])
+    return _slot_contacts_plain(a_fields, b_fields, ti, tj, band, live,
                                 mask_kind=mask_kind, ROW_CAP=ROW_CAP,
                                 CAP_PAIR=CAP_PAIR, dedup=dedup)
 
 
-def tile_group_contacts(a_idx, b_idx, nsteps, fields, *, mask_kind,
-                        ROW_CAP=4, CAP_PAIR=16, dedup=True):
+def tile_group_contacts(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
+                        mask_kind, ROW_CAP=4, CAP_PAIR=16, dedup=True):
     """Padded per-pair contact slots of a grouped pair list.
 
     - ``a_idx``: (S_cap,) int32 a-tile per step.
     - ``b_idx``: (S_cap*W,) int32 entries ``tj | band << 16``: b-tile and
       the 4-bit mask of the a-tile's live bands (G/4 rows each); pad
-      entries carry band 0 (and ``tj = T``) and match nothing.
+      entries carry band 0 (and ``tj = Tb``) and match nothing.
     - ``nsteps``: (1,) int32 live steps (read on the device).
-    - ``fields``: (F, T, G) float32 leaf fields.
-    - ``dedup``: keep only ``tj*G + j > ti*G + i`` (self-contact).
+    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) float32 field
+      sets of the mask (``b_fields`` defaults to ``a_fields``).
+    - ``dedup``: keep only ``tj*G + j > ti*G + i`` (self-contact, one field
+      set).
 
     Returns ``(gi, gj, counts, overflow)``: (S_cap*W, CAP_PAIR) int32 slots
-    of global sorted positions ``ti*G + i`` and ``tj*G + j``, row-major (the
+    of global sorted positions ``ti*G + i`` (a set) and ``tj*G + j`` (b
+    set), row-major (the
     s-th contact of a-row i in b-lane order, s < ROW_CAP, at lane
     ``row_off[i] + s`` if below CAP_PAIR, ``row_off`` the exclusive prefix
     of the uncapped row counts); the uncapped contact count of each entry,
@@ -374,9 +451,9 @@ def tile_group_contacts(a_idx, b_idx, nsteps, fields, *, mask_kind,
     runs one block per entry, one thread per a-row, counts in one pass and
     writes the slots in a second pass over the pairs with contacts only.
     """
-    _check_fields(fields, mask_kind)
+    b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
     _check_slot_caps(ROW_CAP, CAP_PAIR)
-    dev = fields.device
+    dev = a_fields.device
     S_cap = a_idx.shape[0]
     if S_cap == 0 or b_idx.shape[0] % S_cap:
         raise ValueError("b_idx length must be a multiple of len(a_idx)")
@@ -386,19 +463,21 @@ def tile_group_contacts(a_idx, b_idx, nsteps, fields, *, mask_kind,
     _build.check(nsteps, "nsteps", torch.int32, (1,), dev)
     kw = dict(mask_kind=mask_kind, ROW_CAP=ROW_CAP, CAP_PAIR=CAP_PAIR,
               dedup=dedup)
-    if not _build.cuda_device(fields):
-        return tile_group_contacts_plain(a_idx, b_idx, nsteps, fields, **kw)
+    if not _build.cuda_device(a_fields):
+        return tile_group_contacts_plain(a_idx, b_idx, nsteps, a_fields,
+                                         b_fields, **kw)
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("group_contacts", "group_contacts_launch",
-                          [P] * 8 + [I] * 8 + [P])
+                          [P] * 9 + [I] * 9 + [P])
     gi, gj, counts, over = _slot_outputs(SW, CAP_PAIR, dev)
     with torch.cuda.device(dev):
         _build.launch(fn, "group_contacts", a_idx.data_ptr(),
-                      b_idx.data_ptr(), nsteps.data_ptr(), fields.data_ptr(),
+                      b_idx.data_ptr(), nsteps.data_ptr(),
+                      a_fields.data_ptr(), b_fields.data_ptr(),
                       gi.data_ptr(), gj.data_ptr(), counts.data_ptr(),
-                      over.data_ptr(), S_cap, SW // S_cap, fields.shape[1],
-                      fields.shape[2], int(mask_kind == "box"), int(dedup),
-                      ROW_CAP, CAP_PAIR)
+                      over.data_ptr(), S_cap, SW // S_cap, a_fields.shape[1],
+                      b_fields.shape[1], a_fields.shape[2], _KIND[mask_kind],
+                      int(dedup), ROW_CAP, CAP_PAIR)
     tile_group_contacts.launches += 1
     return gi, gj, counts, over[0] > 0
 
@@ -416,29 +495,32 @@ def _slot_outputs(n, CAP_PAIR, dev):
             torch.zeros(1, dtype=torch.int32, device=dev))
 
 
-def tile_pair_contacts_plain(packed, npairs, fields, *, mask_kind,
-                             ROW_CAP=4, CAP_PAIR=16, dedup=True):
+def tile_pair_contacts_plain(packed, npairs, a_fields, b_fields=None, *,
+                             mask_kind, ROW_CAP=4, CAP_PAIR=16, dedup=True):
     """Plain PyTorch version of :func:`tile_pair_contacts` (every lane
     that no contact fills holds -1)."""
-    T = fields.shape[1]
+    if b_fields is None:
+        b_fields = a_fields
     ti = (packed >> 16) & 0xFFFF
     tj = packed & 0xFFFF
     e = torch.arange(packed.shape[0], device=packed.device)
-    live = (e < npairs.clamp(max=packed.shape[0])) & (ti < T) & (tj < T)
+    live = (e < npairs.clamp(max=packed.shape[0])) & \
+        (ti < a_fields.shape[1]) & (tj < b_fields.shape[1])
     band = torch.full_like(ti, (1 << N_BANDS) - 1)
-    return _slot_contacts_plain(fields, ti, tj, band, live,
+    return _slot_contacts_plain(a_fields, b_fields, ti, tj, band, live,
                                 mask_kind=mask_kind, ROW_CAP=ROW_CAP,
                                 CAP_PAIR=CAP_PAIR, dedup=dedup)
 
 
-def tile_pair_contacts(packed, npairs, fields, *, mask_kind, ROW_CAP=4,
-                       CAP_PAIR=16, dedup=True):
+def tile_pair_contacts(packed, npairs, a_fields, b_fields=None, *, mask_kind,
+                       ROW_CAP=4, CAP_PAIR=16, dedup=True):
     """Padded per-pair contact slots of a packed pair list.
 
     - ``packed``: (P_cap,) int32 pairs ``ti << 16 | tj`` (int32 wrap-around
       for ``ti >= 32768``).
     - ``npairs``: (1,) int32 live pairs (read on the device).
-    - ``fields``: (F, T, G) float32 leaf fields.
+    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) float32 field
+      sets of the mask (``b_fields`` defaults to ``a_fields``).
 
     Every a-row is tested (no bands); otherwise as
     :func:`tile_group_contacts`, one pair per entry.
@@ -447,26 +529,28 @@ def tile_pair_contacts(packed, npairs, fields, *, mask_kind, ROW_CAP=4,
     (``_pair_kernel``).  No path of either package calls it; it is the
     second entry point of ``csrc/group_contacts.cu``.
     """
-    _check_fields(fields, mask_kind)
+    b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
     _check_slot_caps(ROW_CAP, CAP_PAIR)
-    dev = fields.device
+    dev = a_fields.device
     P_cap = packed.shape[0]
     _build.check(packed, "packed", torch.int32, (P_cap,), dev)
     _build.check(npairs, "npairs", torch.int32, (1,), dev)
     kw = dict(mask_kind=mask_kind, ROW_CAP=ROW_CAP, CAP_PAIR=CAP_PAIR,
               dedup=dedup)
-    if not _build.cuda_device(fields):
-        return tile_pair_contacts_plain(packed, npairs, fields, **kw)
+    if not _build.cuda_device(a_fields):
+        return tile_pair_contacts_plain(packed, npairs, a_fields, b_fields,
+                                        **kw)
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("group_contacts", "pair_contacts_launch",
-                          [P] * 7 + [I] * 7 + [P])
+                          [P] * 8 + [I] * 8 + [P])
     gi, gj, counts, over = _slot_outputs(P_cap, CAP_PAIR, dev)
     with torch.cuda.device(dev):
         _build.launch(fn, "pair_contacts", packed.data_ptr(),
-                      npairs.data_ptr(), fields.data_ptr(), gi.data_ptr(),
-                      gj.data_ptr(), counts.data_ptr(), over.data_ptr(),
-                      P_cap, fields.shape[1], fields.shape[2],
-                      int(mask_kind == "box"), int(dedup), ROW_CAP, CAP_PAIR)
+                      npairs.data_ptr(), a_fields.data_ptr(),
+                      b_fields.data_ptr(), gi.data_ptr(), gj.data_ptr(),
+                      counts.data_ptr(), over.data_ptr(), P_cap,
+                      a_fields.shape[1], b_fields.shape[1], a_fields.shape[2],
+                      _KIND[mask_kind], int(dedup), ROW_CAP, CAP_PAIR)
     tile_pair_contacts.launches += 1
     return gi, gj, counts, over[0] > 0
 

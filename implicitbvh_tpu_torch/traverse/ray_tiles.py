@@ -1,0 +1,322 @@
+"""Tile ray traversal: batch ray queries through the tile engine.
+
+Counterpart of ``implicitbvh_tpu/traverse/ray_tiles.py``, with the scheme of
+tile self-contact (``traverse/tiles.py``):
+
+1. Rays are sorted for coherence by (direction bin, Morton code of the
+   origin), direction bin = sign octant x dominant axis, and grouped into
+   ray tiles of G.
+2. Phase 1 (torch ops): a slab test of every ray against every leaf tile's
+   AABB, any-reduced over each ray tile's NB sub-bands of G/NB rays, gives
+   the (ray tile, leaf tile) band bits.
+3. One of two routes, chosen as in the JAX package:
+
+   - **two-phase** (``pair_cap <= 128`` and ``capacity % 1024 == 0``): the
+     candidate leaf tiles of a ray tile form aligned runs of R; the count
+     kernel (``ops/tile_contact.py``, ray mask, rays as the a set and
+     leaves as the b set) counts each pair's hits and, with ``decode_k``,
+     writes the per-column moment words; pairs with few hits are decoded
+     from those words (``tiles._moment_decode``), the others go through
+     the emit kernel;
+   - **pair-granularity fallback** (otherwise): the candidate leaf tiles
+     are packed W per step and the slot kernel (``tile_group_contacts``)
+     writes each pair's padded hit slots.
+
+4. Sorted positions become ``(leaf user index, 1-based ray index)`` pairs.
+   Their order in the list is not part of the contract: only the set is.
+
+The hit set is that of ``volumes.isintersection`` of every ray against every
+leaf.  The capacity arithmetic is the JAX package's, copied so that the
+overflow bits and growth agree.  The fixed path makes no host sync.  Growth
+past the slot caps' ceilings ends in the JAX package's LVT walk, which is
+not ported: it raises ``NotImplementedError`` (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..build import BVH
+from ..morton import DefaultMortonAlgorithm, morton_encode
+from ..options import DEFAULT_OPTIONS, BVHOptions
+from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
+                                tile_group_emit, tile_run_counts)
+from ..volumes import _ray_box_test, _reciprocal
+from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal, _extract_contacts,
+                    _finish_contacts, _grow_alg, _grow_capacity,
+                    _merge_cached_alg, _merge_streams, _moment_decode,
+                    _popcount, _regroup_emit_runs, _run_chunk_cap,
+                    _scatter_drop, _step_caps, _tiled_fields, _wrap_int32)
+from .types import BVHTraversal
+
+# rays want a deeper per-ray slot cap than self-contact: one ray can pass
+# through several leaves of one tile (a row is a ray)
+RAY_ALG = TileTraversal(row_cap=8, emit_w=8, decode_k=8)
+_HIT_CHUNK = 1 << 24     # ray x leaf-tile slab tests per batch of phase 1
+
+
+def _ray_pair_capacity(RT: int) -> int:
+    return max(((RT * RAY_CANDS_PER_RAY_TILE + 8191) // 8192) * 8192, 8192)
+
+
+def _sort_rays(p, d):
+    """Coherence sort: the permutation ordering rays by (direction bin,
+    Morton code of the origin), ties in input order.  Direction bin = sign
+    octant (3 bits) x dominant axis (0..2)."""
+    octant = (d[0] < 0).long() * 4 + (d[1] < 0).long() * 2 + (d[2] < 0).long()
+    a0, a1, a2 = d[0].abs(), d[1].abs(), d[2].abs()
+    ax = torch.where(a0 >= a1, torch.where(a0 >= a2, 0, 2),
+                     torch.where(a1 >= a2, 1, 2))
+    dbin = octant * 3 + ax
+    code = morton_encode(p, DefaultMortonAlgorithm(bits=32))
+    return torch.sort((dbin << 32) | code, stable=True).indices
+
+
+def _ray_tile_fields(p, d, perm, G: int):
+    """Permute the rays and tile them into (6, RT, G) fields (p0, p1, p2,
+    d0, d1, d2), NaN padded: every comparison against a padded ray is
+    false.  Returns ``(fields, RT)``."""
+    n = perm.shape[0]
+    RT = -(-n // G)
+    raw = torch.stack([*p, *d])[:, perm]
+    fields = torch.nn.functional.pad(raw, (0, RT * G - n),
+                                     value=float("nan"))
+    return fields.view(6, RT, G), RT
+
+
+def _ray_tile_hits(rfields, tiles, NB: int = 4):
+    """(RT, T) int32 band bits: bit r is set iff a ray of sub-band r (G/NB
+    rays) of ray tile rt hits the AABB of leaf tile t (``tiles``: (6, T)
+    bounds).  Batched over ray tiles, ``_HIT_CHUNK`` slab tests at a
+    time."""
+    _, RT, G = rfields.shape
+    T = tiles.shape[1]
+    BH = G // NB
+    lo, up = tiles[:3, None, :], tiles[3:, None, :]            # (3, 1, T)
+    wts = (1 << torch.arange(NB, device=rfields.device)).view(1, NB, 1)
+    step = max(1, _HIT_CHUNK // (G * T))
+    out = []
+    for r0 in range(0, RT, step):
+        blk = rfields[:, r0:r0 + step].reshape(6, -1, 1)       # (6, C*G, 1)
+        hit = _ray_box_test(blk[:3], _reciprocal(blk[3:]), lo, up)
+        hb = hit.view(-1, NB, BH, T).any(2)                    # (C, NB, T)
+        out.append((hb * wts).sum(1, dtype=torch.int32))
+    return torch.cat(out)
+
+
+def _group_positions(live, W: int):
+    """Row-major packing of the live entries of an (RT, N) mask, W per
+    step, a ray tile's entries in steps of their own.  Returns ``(step,
+    lane, nsteps)``: each entry's step and lane in it, and the step
+    count."""
+    h = live.int()
+    q = torch.cumsum(h, 1) - h                       # position in the row
+    gcnt = (q[:, -1] + h[:, -1] + W - 1) // W        # steps of a ray tile
+    goff = torch.cumsum(gcnt, 0) - gcnt
+    return goff[:, None] + q // W, q % W, gcnt.sum().int()
+
+
+def _phase1_ray_runs(rfields, tiles, W: int, S_cap: int, R: int,
+                     pad_run: int, NB: int = 4):
+    """Candidate extraction of the two-phase ray route: each ray tile's
+    candidate aligned runs of R leaf tiles, W per step, with NB band bits
+    per leaf tile packed into R*NB/32 int32 words per run: the inputs of
+    ``tile_run_counts``.  The (RT, T) bit matrix is dense and row-major, so
+    no sort is needed.
+
+    Returns ``(a_idx, run_idx, bm_words (NW, S_cap*W), nsteps,
+    num_checks)``."""
+    bits = _ray_tile_hits(rfields, tiles, NB)
+    RT, T = bits.shape
+    G = rfields.shape[2]
+    TPW = 32 // NB
+    NW = R // TPW
+    NGT = -(-T // R)
+    bits = torch.nn.functional.pad(bits, (0, NGT * R - T))
+    shifts = NB * torch.arange(TPW, device=bits.device)
+    words = _wrap_int32(
+        (bits.view(RT, NGT, NW, TPW).long() << shifts).sum(-1))
+    # float32, as in the JAX package: the product passes 2^31 at 100k rays
+    num_checks = (_popcount(words).sum().to(torch.float32)
+                  * float((G // NB) * G))
+    live = (words != 0).any(-1)                              # (RT, NGT)
+    step, lane, nsteps = _group_positions(live, W)
+    dst = torch.where(live, step * W + lane, S_cap * W).reshape(-1)
+    g_idx = torch.arange(NGT, dtype=torch.int32, device=bits.device)
+    run_idx = _scatter_drop(S_cap * W, dst,
+                            g_idx.expand(RT, NGT).reshape(-1), pad_run)
+    bm_words = torch.stack([
+        _scatter_drop(S_cap * W, dst, words[..., q].reshape(-1), 0)
+        for q in range(NW)])
+    rt_idx = torch.arange(RT, dtype=torch.int32, device=bits.device)
+    a_idx = _scatter_drop(S_cap, torch.where(live, step, S_cap).reshape(-1),
+                          rt_idx[:, None].expand(RT, NGT).reshape(-1), 0)
+    return a_idx, run_idx, bm_words, nsteps, num_checks
+
+
+def _phase1_ray_tile_groups(rfields, tiles, W: int, S_cap: int):
+    """Candidate extraction of the ray fallback: each ray tile's candidate
+    leaf tiles, W per step.  Returns ``(a_idx (S_cap,), b_idx (S_cap*W,),
+    nsteps)``; b entries ``t | bits << 16`` carry the 4 ray sub-band bits,
+    pad entries point at tile T with bits 0."""
+    bits = _ray_tile_hits(rfields, tiles)
+    hits = bits > 0
+    RT, T = hits.shape
+    step, lane, nsteps = _group_positions(hits, W)
+    dst = torch.where(hits, step * W + lane, S_cap * W).reshape(-1)
+    t_idx = torch.arange(T, dtype=torch.int32, device=bits.device)
+    b_idx = _scatter_drop(S_cap * W, dst, (t_idx | (bits << 16)).reshape(-1),
+                          T)
+    rt_idx = torch.arange(RT, dtype=torch.int32, device=bits.device)
+    a_idx = _scatter_drop(S_cap, torch.where(hits, step, S_cap).reshape(-1),
+                          rt_idx[:, None].expand(RT, T).reshape(-1), 0)
+    return a_idx, b_idx, nsteps
+
+
+def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
+                              alg: Optional[TileTraversal] = None,
+                              pair_capacity: Optional[int] = None,
+                              narrow=None):
+    """Fixed-capacity tile ray traversal, with no host sync.
+
+    ``points``/``directions`` are (3, N) ray matrices.  Returns ``(total,
+    contacts, overflow, num_checks)`` as tensors on the BVH's device: the
+    hit count, a ``(capacity, 2)`` int32 list of ``(leaf user index,
+    1-based ray index)`` pairs in no particular order, the overflow bitmask
+    (bit 0: a buffer capacity, bit 1: a slot cap; results are incomplete
+    when it is set) and the number of ray-leaf tests of live bands
+    (float32).  ``narrow(leaves, p, d)`` is an optional vectorised
+    predicate over gathered leaves and ray coordinate tuples.
+    """
+    from ..raytrace import _prep_rays    # here: raytrace imports this module
+    alg = alg or RAY_ALG
+    G = alg.tile
+    p, d = _prep_rays(points, directions, bvh.leaves.volume.dtype, bvh.device)
+    n_rays = p[0].shape[0]
+    fields, sphere, tiles, _, T = _tiled_fields(bvh, G)
+    perm = _sort_rays(p, d)
+    rfields, RT = _ray_tile_fields(p, d, perm, G)
+    if T >= 1 << 16 or RT >= 1 << 16:
+        raise ValueError("tile count exceeds 65536; raise the tile size")
+    W = alg.count_w
+    if pair_capacity is None:
+        pair_capacity = _ray_pair_capacity(RT)
+    mask_kind = "ray_sphere" if sphere else "ray_box"
+    # sorted ray position -> original 1-based ray index (0 on the padding)
+    iray_map = torch.nn.functional.pad(perm.int() + 1, (0, RT * G - n_rays))
+    narrow_fn = None
+    if narrow is not None:
+        leaves = bvh.leaves
+        rflat = rfields.view(6, -1)
+
+        def narrow_fn(gl, gr):
+            return narrow(leaves[gl], tuple(rflat[:3, gr]),
+                          tuple(rflat[3:, gr]))
+
+    if alg.pair_cap > 128 or capacity % 1024:    # the fallback
+        S_cap, _ = _step_caps(pair_capacity // W + RT)
+        a_idx, b_idx, nsteps = _phase1_ray_tile_groups(rfields, tiles, W,
+                                                       S_cap)
+        gi, gj, counts, slot_overflow = tile_group_contacts(
+            a_idx, b_idx, nsteps.reshape(1), rfields, fields,
+            mask_kind=mask_kind, ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
+            dedup=False)
+        # gi are ray positions and gj leaf positions: the leaf comes first
+        total, contacts = _extract_contacts(
+            gi, gj, counts, bvh.leaves.index, narrow_fn, capacity,
+            leaf_index_b=iray_map, sort_pairs=False, swap_sections=True)
+        overflow = (((nsteps > S_cap) | (total > capacity)).int()
+                    | (slot_overflow.int() << 1))
+        num_checks = (_popcount(b_idx >> 16).sum().to(torch.float32)
+                      * float((G // N_BANDS) * G))
+        return total, contacts, overflow, num_checks
+
+    R, NB, DK = alg.run_r, alg.bands, alg.decode_k
+    S_cap, chunk = _step_caps(pair_capacity // W + RT)
+    ch_cap = _run_chunk_cap(W, R, NB)
+    if chunk > ch_cap:
+        S_cap = -(-S_cap // ch_cap) * ch_cap
+    a_idx, run_idx, bm_words, nsteps, num_checks = _phase1_ray_runs(
+        rfields, tiles, W, S_cap, R, -(-T // R), NB)
+    counts, colmax, *words = tile_run_counts(
+        a_idx, run_idx, bm_words, nsteps.reshape(1), rfields, fields,
+        mask_kind=mask_kind, R=R, NB=NB, dedup=False, moments=bool(DK))
+    slot_overflow = (counts > alg.pair_cap).any()
+
+    # pairs with hits carry 1-3 hits each, far fewer than self-contact
+    # pairs, so the emit grid is sized for one hit per pair
+    W2 = alg.emit_w
+    S2_cap, _ = _step_caps(RT + capacity // W2)
+    E2_cap = max(4096, capacity // 4)
+    D_cap = min(max(8192, capacity // 2), E2_cap * R, 1 << 17) if DK else 0
+    a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
+        a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T, R,
+        NB, decode_k=DK, D_cap=D_cap)
+    parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] if DK \
+        else []
+    gi, gj, tot, flags = tile_group_emit(
+        a_idx2, b_idx2, nsteps2.reshape(1), rfields, fields,
+        mask_kind=mask_kind, ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
+        dedup=False, CAP=capacity)
+    cap_overflow = (nsteps > S_cap) | (nsteps2 > S2_cap) | over2 | \
+        ((flags & 1) > 0)
+    slot_overflow = slot_overflow | ((flags & 2) > 0)
+    gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
+    total, contacts = _finish_contacts(
+        gj, gi, total, bvh.leaves.index, narrow_fn, capacity,
+        leaf_index_b=iray_map, sort_pairs=False)
+    overflow = ((cap_overflow | (total > capacity)).int()
+                | (slot_overflow.int() << 1))
+    return total, contacts, overflow, num_checks
+
+
+def traverse_rays_tiles(bvh: BVH, points, directions, *,
+                        alg: Optional[TileTraversal] = None, narrow=None,
+                        cache: Optional[BVHTraversal] = None,
+                        options: BVHOptions = DEFAULT_OPTIONS
+                        ) -> BVHTraversal:
+    """Tile ray traversal with overflow-driven growth: re-runs
+    :func:`traverse_rays_tiles_fixed` with grown capacities (bit 0) or slot
+    caps (bit 1) until nothing overflows.  ``cache`` (a previous result)
+    starts from its capacities.  A scene still overflowing after eight runs
+    would take the JAX package's LVT walk, which is not ported: that raises
+    ``NotImplementedError`` (ROADMAP A11)."""
+    alg = _merge_cached_alg(alg or RAY_ALG, cache)
+    dev = bvh.device
+    n_rays = int(torch.as_tensor(points).shape[1])
+    if n_rays == 0 or bvh.tree.real_nodes < 1:
+        z = torch.zeros((0,), dtype=torch.int32, device=dev)
+        return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z)
+    if cache is not None and cache.cache1.dim() == 2 \
+            and cache.cache1.shape[0] > 0:
+        capacity = cache.cache1.shape[0]
+    else:
+        capacity = max(options.min_capacity, 4 * n_rays)
+        capacity = 1 << math.ceil(math.log2(capacity))
+    if cache is not None and cache.pair_capacity > 0:
+        pair_capacity = cache.pair_capacity
+    else:
+        pair_capacity = _ray_pair_capacity(-(-n_rays // alg.tile))
+    for _ in range(8):
+        total, contacts, overflow, num_checks = traverse_rays_tiles_fixed(
+            bvh, points, directions, capacity, alg=alg,
+            pair_capacity=pair_capacity, narrow=narrow)
+        ov = int(overflow)
+        if ov == 0:
+            return BVHTraversal(
+                num_contacts=int(total), cache1=contacts,
+                cache2=torch.zeros((0,), dtype=torch.int32, device=dev),
+                num_checks=int(num_checks), pair_capacity=pair_capacity,
+                tile_alg=alg)
+        if ov & 1:
+            capacity = _grow_capacity(capacity, options.capacity_growth)
+            pair_capacity = _grow_capacity(
+                pair_capacity, options.capacity_growth, 8192)
+        if ov & 2:
+            alg = _grow_alg(alg)
+    raise NotImplementedError(
+        "the scene is too dense for the tile engine's slot caps; the LVT "
+        "ray walk fallback is not ported (ROADMAP A11)")

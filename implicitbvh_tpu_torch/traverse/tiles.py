@@ -10,7 +10,10 @@ routes runs, chosen as in the JAX package:
   pairs form aligned runs of R b-tiles; the count kernel
   (``ops/tile_contact.py``) counts each pair's contacts, the pairs with
   contacts are regrouped, and the emit kernel writes their contacts as one
-  dense stream;
+  dense stream; with ``decode_k > 0`` the count kernel also writes
+  per-column moment words, and the pairs whose columns hold at most two
+  contacts each are decoded from those words (``_moment_decode``) and
+  skip the emit kernel;
 - **pair-granularity fallback** (otherwise, which includes every capacity
   of 1024 or less and every ``pair_cap`` that slot-cap growth takes past
   128): the compaction kernel (``ops/compaction.py``) lists the pairs with
@@ -59,8 +62,10 @@ class TileTraversal(TraversalAlgorithm):
     - ``count_w``: run slots per count step sharing one a-tile.
     - ``emit_w``: b-tiles per emit step.
     - ``bands``: sub-bands per tile (4, 8 or 16).
-    - ``decode_k``: must be 0 on the two-phase route (the moment-decode
-      route is not ported); the fallback does not read it.
+    - ``decode_k``: on the two-phase route, pairs with at most this many
+      contacts, at most two per column, are decoded from the count
+      kernel's moment words in place of the emit kernel (0: none; needs
+      ``tile <= 128``).  The fallback does not read it.
     """
 
     tile: int = 128
@@ -74,6 +79,7 @@ class TileTraversal(TraversalAlgorithm):
 
 
 PAIRS_PER_TILE = 36
+RAY_CANDS_PER_RAY_TILE = 448    # candidate leaf tiles per ray tile
 SUPERPAIRS_PER_SUPERTILE = 24
 MAX_ROW_CAP = 32
 MAX_PAIR_CAP = 1024
@@ -140,6 +146,11 @@ def _compact_flat(flat, values, cap, pad=0):
     pos = torch.cumsum(v, 0) - v
     out = _scatter_drop(cap, torch.where(flat, pos, cap), values, pad)
     return out, v.sum(dtype=torch.int32)
+
+
+def _wrap_int32(x64):
+    """int64 values below 2^32 as int32 bit patterns (two's complement)."""
+    return (x64 - ((x64 >> 31) & 1) * (1 << 32)).int()
 
 
 def _popcount(x):
@@ -237,7 +248,7 @@ def _runs_from_bits(bits, si, sj, G: int, W: int, S_cap: int, R: int,
     dev = bits.device
     shifts = NB * torch.arange(TPW, device=dev)
     w64 = (bits.view(SP_cap, SS, NG, NW, TPW).long() << shifts).sum(-1)
-    words = (w64 - ((w64 >> 31) & 1) * (1 << 32)).int()   # int32 wrap
+    words = _wrap_int32(w64)
     num_checks = (_popcount(bits).sum().to(torch.float32)
                   * float((G // NB) * G))
 
@@ -314,7 +325,7 @@ def _phase1_tile_pairs(tiles, sub, P_cap: int):
         cap=cap_c, row_cap=128)
     (out_ti, out_tjb), npairs = finish_compact(slots, counts, P_cap)
     p64 = (out_ti.long() << 16) | (out_tjb & 0xFFFF).long()
-    packed = (p64 - ((p64 >> 31) & 1) * (1 << 32)).int()   # int32 wrap
+    packed = _wrap_int32(p64)
     npairs = torch.where(sp_overflow | c_overflow, P_cap + 1, npairs)
     return packed, out_tjb >> 16, npairs
 
@@ -335,27 +346,41 @@ def _group_pairs(packed, band, npairs, W: int, S_cap: int, T_pad: int):
 
 
 def _extract_contacts(gi, gj, counts, leaf_index, narrow_mask_fn,
-                      capacity: int):
+                      capacity: int, leaf_index_b=None,
+                      sort_pairs: bool = True, swap_sections: bool = False):
     """Per-pair slots -> the final ``(total, contacts)``.  Pair ``p`` owns
     output slots ``[off[p], off[p] + counts[p])``, ``off`` the exclusive
     prefix of the uncapped counts (whose sum is the total); each output
-    slot finds its pair by a binary search and gathers its lane."""
+    slot finds its pair by a binary search and gathers its lane.
+    ``swap_sections`` makes ``gj`` the first contact column (rays: the
+    leaf), ``gi`` the second."""
     SW, CAP_PAIR = gi.shape
     incl = torch.cumsum(counts, 0, dtype=torch.int32)
     k = torch.arange(capacity, dtype=torch.int32, device=gi.device)
     p = torch.searchsorted(incl, k, right=True).clamp(max=SW - 1)
     lane = (k - (incl[p] - counts[p])).clamp(0, CAP_PAIR - 1)
     flat = p * CAP_PAIR + lane
+    if swap_sections:
+        gi, gj = gj, gi
     return _finish_contacts(gi.view(-1)[flat], gj.view(-1)[flat], incl[-1],
-                            leaf_index, narrow_mask_fn, capacity)
+                            leaf_index, narrow_mask_fn, capacity,
+                            leaf_index_b=leaf_index_b, sort_pairs=sort_pairs)
 
 
 def _regroup_emit_runs(a_idx, run_idx, bm_words, counts, colmax, W2: int,
                        S2_cap: int, E2_cap: int, T_pad: int, R: int,
-                       NB: int = 4):
+                       NB: int = 4, decode_k: int = 0, D_cap: int = 0):
     """Regroup the tile pairs with contacts for the emit kernel (payload
     ``tj | band << 16 | cnt << 20 | okc << 28``).  Returns ``(a_idx2,
-    b_idx2, nsteps2, over2)``; ``over2``: more live runs than E2_cap."""
+    b_idx2, nsteps2, over2)``; ``over2``: more live runs than E2_cap.
+
+    With ``decode_k > 0`` the pairs that :func:`_moment_decode` can finish
+    (every column at most 2 contacts, at most ``decode_k`` contacts) leave
+    the emit grouping, up to ``D_cap`` of them (the rest stay with the
+    emit kernel), and a fifth value is returned: ``(dec_pk, dec_flat,
+    dec_cnt, ndec)``, (D_cap,) int32 arrays of the pairs ``ti << 16 | tj``,
+    their rows in the count kernel's word plane and their counts, and the
+    number of them."""
     SW = run_idx.shape[0]
     Win = SW // a_idx.shape[0]
     dev = counts.device
@@ -386,30 +411,112 @@ def _regroup_emit_runs(a_idx, run_idx, bm_words, counts, colmax, W2: int,
     cnt = rc_r.reshape(-1)
     valid = (cnt > 0) & (el < nlive * R)
     tj_c = torch.where(valid, tj, T_pad)
-    payload = tj_c | (band4 << 16) | (cnt << 20) | (ok_r.reshape(-1) << 28)
+    okbit = ok_r.reshape(-1)
+    ti_flat = ti_r.repeat_interleave(R)
+    emit_valid = valid
+    if decode_k:
+        if not 0 < D_cap <= 1 << 17:
+            raise ValueError(f"D_cap must be in (0, 2^17], got {D_cap}")
+        is_dec = valid & (okbit == 1) & (cnt <= decode_k)
+        dm = is_dec.int()
+        dpos = torch.cumsum(dm, 0) - dm
+        is_dec &= dpos < D_cap
+        emit_valid = valid & ~is_dec
+        ddst = torch.where(is_dec, dpos, D_cap)
+        # row of entry (slot, t) in the word plane: the sort key is the
+        # original (step * W + w) slot of a live run
+        flat = slot_r.repeat_interleave(R) * R + t
+        dec_pk = _scatter_drop(
+            D_cap, ddst, _wrap_int32((ti_flat.long() << 16) | tj_c), 0)
+        dec_flat = _scatter_drop(D_cap, ddst, flat.int(), 0)
+        dec_cnt = _scatter_drop(D_cap, ddst, cnt, 0)
+        ndec = dm.sum(dtype=torch.int32).clamp(max=D_cap)
+    payload = tj_c | (band4 << 16) | (cnt << 20) | (okbit << 28)
     a_idx2, (b_idx2,), nsteps2 = _leader_group(
-        ti_r.repeat_interleave(R), valid, (payload,), (T_pad,), W2, S2_cap)
+        ti_flat, emit_valid, (payload,), (T_pad,), W2, S2_cap)
+    if decode_k:
+        return a_idx2, b_idx2, nsteps2, over2, (dec_pk, dec_flat, dec_cnt,
+                                                ndec)
     return a_idx2, b_idx2, nsteps2, over2
 
 
+def _moment_decode(words, dec_pk, dec_flat, dec_cnt, ndec, G: int, K: int,
+                   capacity: int):
+    """Contacts of the moment-captured pairs from the count kernel's word
+    plane, with no emit kernel: a pair whose every column holds at most 2
+    contacts and which has at most K contacts (so at most K live columns)
+    is read back from its row of column words ``cc << 23 | is << 15 | iq``
+    (``is`` the sum of the hit rows, ``iq`` of their squares).  Live
+    columns carry a word >= 2^23 and dead ones 0, so ``topk(K)`` of the row
+    finds exactly the live columns; a column's rows are ``is`` (cc = 1) or
+    ``(is -+ sqrt(2 iq - is^2)) / 2`` (cc = 2; the root is of a perfect
+    square below 2^15, exact in float32).
+
+    ``words`` is the (S_flat, 128) int32 plane, ``dec_*`` the (D_cap,)
+    arrays of :func:`_regroup_emit_runs`.  Returns ``(gi, gj, total)``: a
+    dense (capacity,) int32 stream of sorted positions, pairs in ``dec``
+    order; the order of the contacts inside a pair follows ``topk`` and is
+    not fixed.  The stream is one scatter of packed words ``e << 14 |
+    i << 7 | col`` (hence D_cap <= 2^17 and G <= 128) and one gather of
+    ``dec_pk``."""
+    D_cap = dec_pk.shape[0]
+    if D_cap > 1 << 17 or G > 128:
+        raise ValueError(f"need D_cap <= 2^17 and G <= 128, got {D_cap}, {G}")
+    dev = words.device
+    rows = words[dec_flat.clamp(0, words.shape[0] - 1).long()]  # (D_cap, 128)
+    vals, cols = torch.topk(rows, K, dim=1)
+    cols = cols.int()
+    e = torch.arange(D_cap, dtype=torch.int32, device=dev)[:, None]
+    cc = torch.where(e < ndec, (vals >> 23) & 0xFF, 0)
+    isv = (vals >> 15) & 0xFF
+    iq = vals & 0x7FFF
+    dv = torch.sqrt((2 * iq - isv * isv).clamp(min=0).float()).int()
+    one = cc >= 1
+    two = cc == 2
+    i1 = torch.where(two, (isv - dv) >> 1, isv)
+    i2 = (isv + dv) >> 1
+    e_id = e << 14
+    p1 = e_id | (i1 << 7) | cols
+    p2 = e_id | (i2 << 7) | cols
+    nk = torch.where(one, cc, 0)
+    exc = torch.cumsum(nk, 1, dtype=torch.int32) - nk        # within a pair
+    incl = torch.cumsum(dec_cnt, 0, dtype=torch.int32)
+    offs = (incl - dec_cnt)[:, None]                         # pair offsets
+    total = incl[-1]
+    d1 = torch.where(one, offs + exc, capacity)
+    d2 = torch.where(two, offs + exc + 1, capacity)
+    stream = _scatter_drop(capacity, torch.cat([d1, d2], 1).reshape(-1),
+                           torch.cat([p1, p2], 1).reshape(-1), 0)
+    spk = dec_pk[(stream >> 14).clamp(0, D_cap - 1).long()]
+    gi = ((spk >> 16) & 0xFFFF) * G + ((stream >> 7) & 0x7F)
+    gj = (spk & 0xFFFF) * G + (stream & 0x7F)
+    return gi, gj, total
+
+
 def _finish_contacts(out_gi, out_gj, total, leaf_index, narrow_mask_fn,
-                     capacity: int):
-    """Map a dense stream of global sorted positions to the final sorted
-    ``(min, max)`` user-index contact list, with the optional ``narrow``
-    filter (re-compacted).  Returns ``(total, contacts (capacity, 2))``."""
-    n = leaf_index.shape[0]
+                     capacity: int, leaf_index_b=None,
+                     sort_pairs: bool = True):
+    """Map a dense stream of global sorted positions to the final
+    user-index contact list, with the optional ``narrow`` filter
+    (re-compacted): sorted ``(min, max)`` pairs, or with ``sort_pairs``
+    off ``(leaf_index[gi], leaf_index_b[gj])`` as they come (rays: leaf
+    and 1-based ray index).  Returns ``(total, contacts (capacity, 2))``."""
+    if leaf_index_b is None:
+        leaf_index_b = leaf_index
     lane = torch.arange(capacity, device=leaf_index.device)
-    out_gi = out_gi.clamp(0, n - 1).long()
-    out_gj = out_gj.clamp(0, n - 1).long()
-    ui, uj = leaf_index[out_gi], leaf_index[out_gj]
+    out_gi = out_gi.clamp(0, leaf_index.shape[0] - 1).long()
+    out_gj = out_gj.clamp(0, leaf_index_b.shape[0] - 1).long()
+    ui, uj = leaf_index[out_gi], leaf_index_b[out_gj]
     in_range = lane < total
     if narrow_mask_fn is not None:
         keep = in_range & narrow_mask_fn(out_gi, out_gj)
         ui, total = _compact_flat(keep, ui, capacity)
         uj, _ = _compact_flat(keep, uj, capacity)
         in_range = lane < total
-    a = torch.where(in_range, torch.minimum(ui, uj), 0)
-    b = torch.where(in_range, torch.maximum(ui, uj), 0)
+    if sort_pairs:
+        ui, uj = torch.minimum(ui, uj), torch.maximum(ui, uj)
+    a = torch.where(in_range, ui, 0)
+    b = torch.where(in_range, uj, 0)
     return total, torch.stack([a, b], dim=-1)
 
 
@@ -450,10 +557,6 @@ def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
     G = alg.tile
     NB = alg.bands
     two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
-    if two_phase and alg.decode_k:
-        raise NotImplementedError(
-            "the moment-decode emit route (decode_k > 0) is not ported "
-            "(ROADMAP A9)")
     fields, sphere, tiles, sub, T = _tiled_fields(bvh, G, NB)
     if T >= 1 << 16:
         raise ValueError("tile count exceeds 65536; raise the tile size")
@@ -494,23 +597,27 @@ def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
     a_idx, run_idx, bm_words, nsteps, num_checks, pair_overflow = \
         _phase1_tile_runs(tiles, sub, G, pair_capacity, W, S_cap, R,
                           pad_run, NB)
-    counts, colmax = tile_run_counts(
+    DK = alg.decode_k
+    counts, colmax, *words = tile_run_counts(
         a_idx, run_idx, bm_words, nsteps.reshape(1), fields,
-        mask_kind=mask_kind, R=R, NB=NB, dedup=True)
+        mask_kind=mask_kind, R=R, NB=NB, dedup=True, moments=bool(DK))
     slot_overflow = (counts > alg.pair_cap).any()
 
     W2 = alg.emit_w
     S2_cap, _ = _step_caps(T + capacity // (8 * W2))
     E2_cap = max(4096, capacity // 8)
-    a_idx2, b_idx2, nsteps2, over2 = _regroup_emit_runs(
+    D_cap = min(max(8192, capacity // 8), E2_cap * R, 1 << 17) if DK else 0
+    a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
         a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T, R,
-        NB)
+        NB, decode_k=DK, D_cap=D_cap)
+    parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] if DK \
+        else []
     gi, gj, tot, flags = tile_group_emit(
         a_idx2, b_idx2, nsteps2.reshape(1), fields, mask_kind=mask_kind,
         ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=True, CAP=capacity)
     cap_overflow = (nsteps2 > S2_cap) | over2 | ((flags & 1) > 0)
     slot_overflow = slot_overflow | ((flags & 2) > 0)
-    gi, gj, total = _merge_streams([(gi, gj, tot)], capacity)
+    gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
     total, contacts = _finish_contacts(gi, gj, total, bvh.leaves.index,
                                        narrow_fn, capacity)
     overflow = ((pair_overflow | cap_overflow | (total > capacity)).int()

@@ -15,6 +15,19 @@ class TraversalAlgorithm:
 
 
 @dataclasses.dataclass(frozen=True)
+class BFSTraversal(TraversalAlgorithm):
+    """Simultaneous breadth-first traversal.  The walk itself is not ported
+    (ROADMAP A11): entry points given one raise ``NotImplementedError``."""
+
+
+@dataclasses.dataclass(frozen=True)
+class LVTTraversal(TraversalAlgorithm):
+    """Leaf-vs-tree traversal, the JAX package's default on the CPU.  The
+    walk itself is not ported (ROADMAP A11): entry points given one raise
+    ``NotImplementedError``."""
+
+
+@dataclasses.dataclass(frozen=True)
 class BVHTraversal:
     """Traversal result.
 

@@ -3,7 +3,8 @@
 Counterpart of ``implicitbvh_tpu/volumes.py``.  The public layout is the
 JAX package's: each coordinate is its own ``(N,)`` tensor (a 3-tuple), and
 constructors also accept ``(N, 3)`` arrays.  Ported so far: the two volume
-types, ``center_coords``, ``bbox_of_bsphere`` and ``bsphere_from_triangles``.
+types, ``center_coords``, ``bbox_of_bsphere``, ``bsphere_from_triangles``
+and the ray predicate ``isintersection``.
 """
 
 from __future__ import annotations
@@ -124,6 +125,66 @@ def center_coords(v: Volume) -> Coords:
 def bbox_of_bsphere(a: BSphere) -> BBox:
     """Sphere -> enclosing box."""
     return BBox(tuple(c - a.r for c in a.xs), tuple(c + a.r for c in a.xs))
+
+
+def _min2(x, y):
+    """The reference's select minimum ``where(x < y, x, y)``: a NaN in
+    either operand gives ``y`` (``torch.minimum`` would give NaN)."""
+    return torch.where(x < y, x, y)
+
+
+def _max2(x, y):
+    """The reference's select maximum ``where(x > y, x, y)``."""
+    return torch.where(x > y, x, y)
+
+
+def _ray_box_test(p, inv, lo, up):
+    """Forward-ray slab test from origins ``p``, direction reciprocals
+    ``inv`` and box corners ``lo``/``up`` (3-sequences of broadcastable
+    tensors), in the reference's operation order."""
+    tmin = tmax = None
+    for k in range(3):
+        t1 = (lo[k] - p[k]) * inv[k]
+        t2 = (up[k] - p[k]) * inv[k]
+        lo_k, hi_k = _min2(t1, t2), _max2(t1, t2)
+        tmin = lo_k if tmin is None else _max2(tmin, lo_k)
+        tmax = hi_k if tmax is None else _min2(tmax, hi_k)
+    return (tmin <= tmax) & (tmax >= 0)
+
+
+def _ray_sphere_test(p, d, xs, r):
+    """Forward-ray discriminant test of rays ``p``/``d`` against spheres
+    ``xs``/``r``, in the reference's operation order."""
+    qa = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    po = [p[k] - xs[k] for k in range(3)]
+    qb = 2.0 * (po[0] * d[0] + po[1] * d[1] + po[2] * d[2])
+    qc = po[0] * po[0] + po[1] * po[1] + po[2] * po[2] - r * r
+    disc = qb * qb - 4.0 * qa * qc
+    return (disc >= 0) & ((qb <= 0) | (qc <= 0))
+
+
+def _reciprocal(d):
+    """``1 / d`` as an IEEE division (not an approximate reciprocal)."""
+    return torch.ones_like(d) / d
+
+
+def isintersection(v: Volume, p, d):
+    """Forward-ray intersection test against boxes (slab test) or spheres
+    (discriminant test).  ``p``/``d`` are (..., 3) arrays or coordinate
+    tuples, broadcast against the volume batch; returns a bool tensor.
+
+    The JAX package's predicate operation for operation
+    (``implicitbvh_tpu/volumes.py:332-370``), in the formulas the ray masks
+    of ``ops/tile_contact.py`` share: the slab test takes its
+    minima and maxima by ``where(x < y, x, y)``, whose answer on a NaN (a
+    ray in a face plane with a zero direction component, ``0 * inf``)
+    differs from ``torch.minimum``'s, and ``1 / d`` is an IEEE division.
+    """
+    dev = v.device
+    p, d = as_coords(p, dev), as_coords(d, dev)
+    if isinstance(v, BBox):
+        return _ray_box_test(p, [_reciprocal(c) for c in d], v.los, v.ups)
+    return _ray_sphere_test(p, d, v.xs, v.r)
 
 
 def bsphere_from_triangles(p1, p2, p3, device=None) -> BSphere:
