@@ -7,12 +7,13 @@ Run from the repository root on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``implicitbvh_tpu_torch/csrc/`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once), then drives both
-routes of tile self-contact: the two-phase route (kernels B1 band bits, B2
-counts, B3 emit) and the pair-granularity fallback (B1, B5 compaction, B4
-grouped slots), which small capacities and grown slot caps take; and both
-routes of the batch ray query (two-phase: B2 with a ray mask and moment
-words, the moment decode, B3 with a ray mask; fallback: B4 with a ray
-mask).  B6 (per-pair slots of a packed pair list) is on no path and is held
+routes of tile self-contact and of two-tree contact: the two-phase route
+(kernels B1 band bits, B2 counts, B3 emit) and the pair-granularity
+fallback (B1, B5 compaction, B4 grouped slots), which small capacities and
+grown slot caps take; both routes of the batch ray query (two-phase: B2
+with a ray mask and moment words, the moment decode, B3 with a ray mask;
+fallback: B4 with a ray mask); the public ``traverse`` dispatch; and the
+leaf-vs-tree walks (torch ops), where growth past the slot caps ends.  B6 (per-pair slots of a packed pair list) is on no path and is held
 against its plain version only.
 
 1. runs each kernel and its plain PyTorch version on the same inputs on the
@@ -61,10 +62,42 @@ against its plain version only.
     routes: identical hits, total, overflow and ``num_checks``; and
     ``traverse_rays`` with default arguments on the card (growth from the
     smallest capacity, dispatch to the tile engine) against the brute force;
-11. times (CUDA events, median of 7 after a warm-up) each self-contact
-    route's 1M step end to end and by stage and the full-width ray query
+11. holds the two-tree variants against their plain versions on a small
+    two-body scene (4,096 and 2,048 leaves, tile 32, as spheres and as
+    boxes): B1 with ``triangle=False`` and B2, B3, B4 with ``dedup=False``
+    on two field sets, and B5 on the full grid, at the inputs both routes
+    of ``traverse_tiles_pair_fixed`` give them; both routes must return
+    the pairs of a brute force (``iscontact``);
+12. drives the JAX package's own pair benchmark (config 4 of
+    ``benchmarks/baseline_configs.py``: 32,768 and 16,384 triangles, seeds
+    2 and 3, capacity 2^17) through ``traverse_tiles_pair_fixed`` on the
+    two-phase route (default ``TileTraversal()``) and the fallback, launch
+    counts set to 0 just before and read just after, and through
+    ``traverse(bvh1, bvh2)`` with default arguments: overflow 0, no host
+    sync, no duplicate pair, launches of B1, B2, B3 (two-phase) and B1, B5,
+    B4 (fallback) and of no other, and the set of a brute force on the
+    card over all 5.4 x 10^8 pairs;
+13. drives the two-tree query at full width: the 1M bench BVH against a
+    second body of 2^19 triangles (seed 3), capacity 2^17, pair capacity
+    2^19, both routes, the same requirements; every pair must satisfy the
+    sphere predicate and the set must equal the pairs that cross the two
+    bodies in tile self-contact over both bodies' leaves together, and so
+    must ``traverse(bvh1, bvh2)`` with default arguments (the wrapper's own
+    capacities and growth); then holds each variant against its plain
+    version at these inputs;
+14. runs the leaf-vs-tree walks (torch ops, no kernel) on the card:
+    ``traverse(bvh1, bvh2, LVTTraversal())`` at config 4's scene (the tile
+    engine's set); a sphere-leaf BVH against a box-leaf BVH with default
+    arguments (mixed kinds take the walk; the brute force's set);
+    ``traverse_rays(..., LVTTraversal())`` with 1,000 rays against the
+    2^18-leaf ray BVH (the tile ray engine's hits); and 2,048 coincident
+    spheres through ``traverse_tiles``, whose growth ends in the walk
+    (every pair); each timed once with its loop steps and host syncs;
+15. times (CUDA events, median of 7 after a warm-up) each self-contact
+    route's 1M step end to end and by stage, the full-width ray query
     end to end and by stage (sort rays, phase 1, B2, regroup, decode, B3,
-    the rest), each with its host enqueue time and a profile (device time
+    the rest) and the full-width pair query on both routes end to end and
+    by stage, each with its host enqueue time and a profile (device time
     by kernel, device busy share), and each kernel and variant at its
     full-size inputs beside its plain version and, for B5,
     ``torch.masked_select``.
@@ -106,6 +139,18 @@ N_RAYS = 100_000           # its rays
 RAY_CAPACITY = 1 << 18
 TPU_RAY_HITS = 198988      # the JAX package's total on this scene (TPU v5e)
 N_BOX_RAYS = 8192          # rays of the box-leaf scene (N_CROSS boxes)
+
+N_PAIR4 = (1 << 15, 1 << 14)   # config 4 of benchmarks/baseline_configs.py
+PAIR4_CAPACITY = 1 << 17
+TPU_PAIR4_CONTACTS = 1882  # the JAX package's total on that scene (TPU v5e)
+N_BODY2 = 1 << 19          # second body of the full-width pair scene
+PAIR_CAPACITY = 1 << 17    # its contact capacity, both routes
+PAIR_PAIR_CAPACITY = 1 << 19   # its tile-pair capacity, both routes
+UNION_CAPACITY = 1 << 19   # self-contact over both bodies' leaves:
+UNION_PAIR_CAPACITY = 1 << 20  # twice the density where they overlap
+N_WALK_RAYS = 1000         # rays of the ray walk (config 3's walk point)
+TPU_WALK_RAY_HITS = 1981   # the JAX package's total there (TPU v5e)
+N_DENSE = 2048             # coincident spheres: past the slot caps' ceiling
 
 
 def synth_triangles(n_tri: int, seed: int = 0):
@@ -312,17 +357,20 @@ def main() -> int:
 
     errs = {}      # row of the kernels line -> max abs difference seen
 
-    def row_of(name, kw):
+    def row_of(name, kw, pair=False):
         """The row of the kernels line a call belongs to: the kernel's name,
-        with its variant where it is not the self-contact one."""
+        with its variant where it is not the self-contact one (``pair``:
+        the two-tree callers; ``cross`` for the kernels without a mask)."""
         kind, moments = kw.get("mask_kind", ""), kw.get("moments", False)
-        tags = [kind] * (kind.startswith("ray") or moments) + \
-            ["moments"] * moments
+        tags = [kind] * (kind.startswith("ray") or moments
+                         or (pair and bool(kind))) + \
+            ["moments"] * moments + \
+            [("pair" if kind else "cross")] * pair
         return f"{name}[{','.join(tags)}]" if tags else name
 
-    def check_kernel(name, args, kw, label):
+    def check_kernel(name, args, kw, label, pair=False):
         wrapper, plain = kernels[name][:2]
-        row = row_of(name, kw)
+        row = row_of(name, kw, pair)
         errs.setdefault(row, 0)
         got, want = outputs_of(name, wrapper(*args, **kw),
                                plain(*args, **kw), kw)
@@ -336,12 +384,12 @@ def main() -> int:
                                 int((g.long() - w.long()).abs().max()))
         log(f"{label}: {row} kernel == plain (exact)")
 
-    def check_kernels(seen, label, names):
+    def check_kernels(seen, label, names, pair=False):
         missing = set(names) - set(seen)
         if missing:
             raise AssertionError(f"{label}: {sorted(missing)} not called")
         for name in names:
-            check_kernel(name, *seen[name], label)
+            check_kernel(name, *seen[name], label, pair)
 
     two_phase = ib.TileTraversal(**TWO_PHASE)
     fallback = ib.TileTraversal(**FALLBACK)
@@ -383,18 +431,23 @@ def main() -> int:
     def launch_counts():
         return {name: k[0].launches for name, k in kernels.items()}
 
-    def main_path(bvh, alg):
-        """One traverse_tiles_fixed call with the launch counts set to 0
-        just before and read just after, under the sync check."""
+    def counted(fixed_call):
+        """``fixed_call()`` with the launch counts set to 0 just before and
+        read just after, under the sync check: a ``*_fixed`` tile path
+        never syncs with the host."""
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        torch.cuda.set_sync_debug_mode("error")  # the fixed path never syncs
+        torch.cuda.set_sync_debug_mode("error")
         try:
-            out = ib.traverse_tiles_fixed(bvh, capacity, alg=alg)
+            out = fixed_call()
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         return out, launch_counts()
+
+    def main_path(bvh, alg):
+        return counted(lambda: ib.traverse_tiles_fixed(bvh, capacity,
+                                                       alg=alg))
 
     # 2. the two-phase route at the bench scene
     capacity = max(1 << (math.ceil(math.log2(N_BENCH)) - 3), 4096)
@@ -479,17 +532,8 @@ def main() -> int:
 
     # ---- batch ray queries ------------------------------------------------
     def ray_path(bvh, p, d, capacity, alg):
-        """One traverse_rays_tiles_fixed call with the launch counts set to
-        0 just before and read just after, under the sync check."""
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        torch.cuda.set_sync_debug_mode("error")  # the fixed path never syncs
-        try:
-            out = ib.traverse_rays_tiles_fixed(bvh, p, d, capacity, alg=alg)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        return out, launch_counts()
+        return counted(lambda: ib.traverse_rays_tiles_fixed(
+            bvh, p, d, capacity, alg=alg))
 
     def hit_keys(total, contacts, overflow, n_leaves, n_rays, label):
         """Sorted keys ``(leaf - 1) * n_rays + (ray - 1)`` of a ray result:
@@ -708,7 +752,270 @@ def main() -> int:
             f"leaves, {nr} rays, {t.num_contacts} hits, capacity "
             f"{t.cache1.shape[0]}, {t.tile_alg}, launches {launch_counts()}")
 
-    # 11. timings at the bench scene and the full-width ray scene
+    # ---- two-tree contact, the public traverse, the walks -----------------
+    from implicitbvh_tpu_torch.traverse.walk import stackless_walk
+
+    def pair_path(b1, b2, cap, alg, pair_capacity=None):
+        return counted(lambda: ib.traverse_tiles_pair_fixed(
+            b1, b2, cap, alg=alg, pair_capacity=pair_capacity))
+
+    def pair_keys(total, contacts, overflow, n1, n2, label):
+        """Sorted keys ``(i - 1) * n2 + (j - 1)`` of a two-tree result: no
+        overflow, indices in range, no duplicate pair."""
+        total, overflow = int(total), int(overflow)
+        if overflow != 0:
+            raise AssertionError(f"overflow {overflow} ({label})")
+        c = contacts[:total].long() - 1
+        if total and not bool(((c >= 0).all(1) & (c[:, 0] < n1)
+                               & (c[:, 1] < n2)).all()):
+            raise AssertionError(f"a pair's indices are out of range "
+                                 f"({label})")
+        keys = (c[:, 0] * n2 + c[:, 1]).sort().values
+        if torch.unique(keys).numel() != total:
+            raise AssertionError(f"duplicate pairs ({label})")
+        return keys
+
+    def brute_force_pair_keys(v1, v2, tests=1 << 25):
+        """The same keys from ``iscontact`` of every leaf of ``v1`` against
+        every leaf of ``v2`` (user order), ``tests`` pairs at a time."""
+        n1, n2 = v1.batch_shape[0], v2.batch_shape[0]
+        rows = max(1, tests // n2)
+        keys = []
+        for k0 in range(0, n1, rows):
+            a = v1[k0:k0 + rows]
+            if isinstance(a, ib.BSphere):
+                a = ib.BSphere(tuple(x[:, None] for x in a.xs), a.r[:, None])
+            else:
+                a = ib.BBox(tuple(x[:, None] for x in a.los),
+                            tuple(x[:, None] for x in a.ups))
+            i, j = ib.iscontact(a, v2).nonzero(as_tuple=True)
+            keys.append((i + k0) * n2 + j)
+        return torch.cat(keys).sort().values
+
+    def check_pair_launches(launches, route, label):
+        want, none = ((two_phase_kernels, ("tile_group_contacts",
+                                           "tile_compact"))
+                      if route == "two-phase" else
+                      (fallback_kernels, ("tile_run_counts",
+                                          "tile_group_emit")))
+        if min(launches[n] for n in want) < 1 or \
+                any(launches[n] for n in none):
+            raise AssertionError(f"{label}: launches are wrong: {launches}")
+
+    def boxes_of(sph):
+        return ib.BBox(tuple(x - sph.r for x in sph.xs),
+                       tuple(x + sph.r for x in sph.xs))
+
+    # 11. two-tree kernel variants against their plain versions: tile 32
+    small2_spheres = ib.bsphere_from_triangles(
+        *to_dev(synth_triangles(N_SMALL // 2, seed=2), dev))
+    pair_small_2p = ib.TileTraversal(tile=32, **TWO_PHASE)
+    for kind, v1, v2 in (("sphere", small_spheres, small2_spheres),
+                         ("box", boxes_of(small_spheres),
+                          boxes_of(small2_spheres))):
+        b1, b2 = ib.build(v1), ib.build(v2)
+        label = (f"small pair scene ({N_SMALL} x {N_SMALL // 2} {kind} "
+                 "leaves, tile 32")
+        with recorded_inputs() as seen:
+            out_2p = ib.traverse_tiles_pair_fixed(b1, b2, 8192,
+                                                  alg=pair_small_2p)
+        check_kernels(seen, label + ", two-phase)", two_phase_kernels,
+                      pair=True)
+        if seen["subtile_band_bits"][1]["triangle"] or \
+                seen["tile_run_counts"][1]["dedup"] or \
+                len(seen["tile_group_emit"][0]) != 5:
+            raise AssertionError("the pair path did not take triangle=False, "
+                                 "dedup=False and two field sets")
+        with recorded_inputs() as seen:
+            out_fb = ib.traverse_tiles_pair_fixed(b1, b2, 8192, alg=small_fb)
+        check_kernels(seen, label + ", fallback)", fallback_kernels,
+                      pair=True)
+        bf = brute_force_pair_keys(v1, v2)
+        for route, out in (("two-phase", out_2p), ("fallback", out_fb)):
+            if not torch.equal(pair_keys(*out[:3], N_SMALL, N_SMALL // 2,
+                                         f"{label}, {route})"), bf):
+                raise AssertionError(f"{label}, {route}): the pair set "
+                                     "differs from the brute force's")
+        log(f"{label}): both routes return the brute force's "
+            f"{bf.numel()} pairs")
+
+    # 12. the JAX package's pair benchmark (config 4 of
+    # benchmarks/baseline_configs.py): both routes and traverse(bvh1, bvh2)
+    c4 = [ib.bsphere_from_triangles(*to_dev(synth_triangles(n, seed=sd), dev))
+          for n, sd in ((N_PAIR4[0], 2), (N_PAIR4[1], 3))]
+    c4_bvh = [ib.build(v) for v in c4]
+    t0 = time.perf_counter()
+    keys_c4 = brute_force_pair_keys(*c4)
+    log(f"config 4 scene: brute force of {N_PAIR4[0]} x {N_PAIR4[1]} tests "
+        f"on the card, {keys_c4.numel()} pairs (the JAX package reported "
+        f"{TPU_PAIR4_CONTACTS} on a TPU v5e), "
+        f"{time.perf_counter() - t0:.3f} s")
+    for route, alg in (("two-phase", None), ("fallback", fallback)):
+        (p_total, p_contacts, p_overflow, p_checks), launches_c4 = \
+            pair_path(*c4_bvh, PAIR4_CAPACITY, alg)
+        label = f"config 4 scene, {route}"
+        log(f"{label}: {int(p_total)} contacts, overflow {int(p_overflow)}, "
+            f"num_checks {float(p_checks):.0f}, launches {launches_c4}")
+        check_pair_launches(launches_c4, route, label)
+        if not torch.equal(pair_keys(p_total, p_contacts, p_overflow,
+                                     *N_PAIR4, label), keys_c4):
+            raise AssertionError(f"{label}: the pair set differs from the "
+                                 "brute force's")
+        log(f"{label}: the pair set equals the brute force's, no "
+            "duplicates, no host sync in traverse_tiles_pair_fixed")
+    ops.reset_launch_counts()
+    t = ib.traverse(*c4_bvh)
+    if t.tile_alg is None or t.cache1.device.type != "cuda" or \
+            not torch.equal(pair_keys(t.num_contacts, t.cache1, 0, *N_PAIR4,
+                                      "traverse(bvh1, bvh2)"), keys_c4):
+        raise AssertionError("traverse(bvh1, bvh2) with default arguments "
+                             "differs from the brute force")
+    log(f"traverse(bvh1, bvh2) with default arguments on the card: "
+        f"{t.num_contacts} contacts, capacity {t.cache1.shape[0]}, pair "
+        f"capacity {t.pair_capacity}, {t.tile_alg}, launches "
+        f"{launch_counts()}")
+
+    # 13. the two-tree query at full width: the bench BVH against a second
+    # body, both routes, against tile self-contact over both leaf sets
+    body2 = ib.bsphere_from_triangles(
+        *to_dev(synth_triangles(N_BODY2, seed=3), dev))
+    bvh2 = ib.build(body2)
+    pair_runs = {}
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        (p_total, p_contacts, p_overflow, p_checks), launches_p = \
+            pair_path(bvh, bvh2, PAIR_CAPACITY, alg, PAIR_PAIR_CAPACITY)
+        label = f"pair scene, {route}"
+        log(f"{label}: {N_BENCH} x {N_BODY2} leaves, capacity "
+            f"{PAIR_CAPACITY}, pair capacity {PAIR_PAIR_CAPACITY}: "
+            f"{int(p_total)} contacts, overflow {int(p_overflow)}, "
+            f"num_checks {float(p_checks):.0f}, launches {launches_p}")
+        check_pair_launches(launches_p, route, label)
+        keys = pair_keys(p_total, p_contacts, p_overflow, N_BENCH, N_BODY2,
+                         label)
+        c = p_contacts[:int(p_total)].long() - 1
+        if not bool(ib.iscontact(spheres[c[:, 0]], body2[c[:, 1]]).all()):
+            raise AssertionError(f"{label}: a pair fails the sphere "
+                                 "predicate")
+        pair_runs[route] = (keys, launches_p)
+    del p_contacts
+    both = ib.BSphere(tuple(torch.cat([a, b]) for a, b in
+                            zip(spheres.xs, body2.xs)),
+                      torch.cat([spheres.r, body2.r]))
+    u_total, u_contacts, u_overflow, _ = ib.traverse_tiles_fixed(
+        ib.build(both), UNION_CAPACITY, alg=two_phase,
+        pair_capacity=UNION_PAIR_CAPACITY)
+    if int(u_overflow) != 0:
+        raise AssertionError(f"self-contact over both bodies overflows: "
+                             f"{int(u_overflow)}")
+    u = u_contacts[:int(u_total)].long() - 1       # sorted (min, max)
+    cross_pairs = u[(u[:, 0] < N_BENCH) & (u[:, 1] >= N_BENCH)]
+    keys_union = (cross_pairs[:, 0] * N_BODY2
+                  + (cross_pairs[:, 1] - N_BENCH)).sort().values
+    for route, (keys, _) in pair_runs.items():
+        if not torch.equal(keys, keys_union):
+            raise AssertionError(f"pair scene, {route}: the pair set differs "
+                                 "from self-contact over both leaf sets")
+    log(f"pair scene: both routes return the {keys_union.numel()} pairs that "
+        f"cross the two bodies among the {int(u_total)} self-contacts of "
+        f"their {N_BENCH + N_BODY2} leaves together; every pair satisfies "
+        "the sphere predicate, no duplicates, no host sync in "
+        "traverse_tiles_pair_fixed")
+    del u_contacts, u, both
+    t = ib.traverse(bvh, bvh2)     # the wrapper's own capacities, and growth
+    if t.tile_alg is None or not torch.equal(
+            pair_keys(t.num_contacts, t.cache1, 0, N_BENCH, N_BODY2,
+                      "traverse(bvh1, bvh2) at full width"), keys_union):
+        raise AssertionError("traverse(bvh1, bvh2) at full width differs "
+                             "from self-contact over both leaf sets")
+    log(f"pair scene, traverse(bvh1, bvh2) with default arguments: "
+        f"{t.num_contacts} contacts, capacity {t.cache1.shape[0]}, pair "
+        f"capacity {t.pair_capacity} (it starts from "
+        f"{tiles._pair_capacity_for((N_BENCH + N_BODY2) // 256)}), "
+        f"{t.tile_alg}")
+    del t
+    with recorded_inputs() as seen_pair:
+        ib.traverse_tiles_pair_fixed(bvh, bvh2, PAIR_CAPACITY, alg=two_phase,
+                                     pair_capacity=PAIR_PAIR_CAPACITY)
+    check_kernels(seen_pair, f"pair scene ({N_BENCH} x {N_BODY2} leaves, "
+                  "two-phase)", two_phase_kernels, pair=True)
+    with recorded_inputs() as seen_pair_fb:
+        ib.traverse_tiles_pair_fixed(bvh, bvh2, PAIR_CAPACITY, alg=fallback,
+                                     pair_capacity=PAIR_PAIR_CAPACITY)
+    check_kernels(seen_pair_fb, f"pair scene ({N_BENCH} x {N_BODY2} leaves, "
+                  "fallback)", fallback_kernels, pair=True)
+
+    # 14. the leaf-vs-tree walks on the card (torch ops in lockstep, no
+    # kernel; the loop's end test syncs with the host)
+    def walked(label, call):
+        """``call()`` timed on the host's clock to the device's end, with
+        the walk's steps and end tests counted."""
+        torch.cuda.synchronize()
+        stackless_walk.steps = stackless_walk.syncs = 0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"time: walk (torch ops, no kernel), {label}: {ms:.1f} ms once, "
+            f"{stackless_walk.steps} loop steps, {stackless_walk.syncs} end "
+            f"tests (host syncs), {out.num_contacts} contacts, kernel "
+            f"launches {sum(launch_counts().values())} [{card}]")
+        if stackless_walk.steps == 0 or out.tile_alg is not None:
+            raise AssertionError(f"{label}: the walk did not run")
+        return out
+
+    t = walked(f"traverse(bvh1, bvh2, LVTTraversal()), {N_PAIR4[0]} x "
+               f"{N_PAIR4[1]} leaves",
+               lambda: ib.traverse(*c4_bvh, ib.LVTTraversal()))
+    if not torch.equal(pair_keys(t.num_contacts, t.cache1, 0, *N_PAIR4,
+                                 "LVT pair walk"), keys_c4):
+        raise AssertionError("the LVT pair walk differs from the tile engine")
+    mixed = (ib.build(small_spheres), ib.build(boxes_of(small2_spheres)))
+    t = walked(f"traverse(sphere-leaf BVH, box-leaf BVH), default "
+               f"arguments, {N_SMALL} x {N_SMALL // 2} leaves",
+               lambda: ib.traverse(*mixed))
+    if not torch.equal(
+            pair_keys(t.num_contacts, t.cache1, 0, N_SMALL, N_SMALL // 2,
+                      "mixed leaf kinds"),
+            brute_force_pair_keys(small_spheres, boxes_of(small2_spheres))):
+        raise AssertionError("mixed leaf kinds: the walk differs from the "
+                             "brute force")
+    wrng = np.random.default_rng(1)     # config 3 draws its walk's rays last
+    wscale = float(N_RAY_TRIS) ** (1.0 / 3.0)
+    for nr in (1000, N_RAYS, N_WALK_RAYS):
+        wp = (wrng.random((3, nr)) * wscale).astype(np.float32)
+        wd = (wrng.random((3, nr)) - 0.5).astype(np.float32)
+    wp, wd = torch.as_tensor(wp, device=dev), torch.as_tensor(wd, device=dev)
+    t = walked(f"traverse_rays(LVTTraversal()), {N_WALK_RAYS} rays x "
+               f"{N_RAY_TRIS} leaves",
+               lambda: ib.traverse_rays(ray_bvh, wp, wd, ib.LVTTraversal()))
+    tile_hits = ib.traverse_rays(ray_bvh, wp, wd)
+    if tile_hits.tile_alg is None or not torch.equal(
+            hit_keys(t.num_contacts, t.cache1, 0, N_RAY_TRIS, N_WALK_RAYS,
+                     "ray walk"),
+            hit_keys(tile_hits.num_contacts, tile_hits.cache1, 0, N_RAY_TRIS,
+                     N_WALK_RAYS, "tile ray engine")):
+        raise AssertionError("the ray walk differs from the tile ray engine")
+    log(f"ray walk: the tile ray engine's {tile_hits.num_contacts} hits "
+        f"(the JAX package reported {TPU_WALK_RAY_HITS} on a TPU v5e)")
+    dense = ib.build(ib.BSphere(
+        torch.zeros((N_DENSE, 3), device=dev),
+        torch.full((N_DENSE,), 0.5, device=dev)))
+    t = walked(f"traverse_tiles past the slot caps' ceilings, {N_DENSE} "
+               "coincident spheres (eight tile runs, then the walk)",
+               lambda: ib.traverse_tiles(dense))
+    c = t.contacts.long()
+    if t.num_contacts != N_DENSE * (N_DENSE - 1) // 2 or \
+            not bool((c[:, 0] < c[:, 1]).all()) or \
+            torch.unique(c[:, 0] * (N_DENSE + 1) + c[:, 1]).numel() != \
+            t.num_contacts:
+        raise AssertionError("the dense scene's contacts are not every pair")
+    log(f"dense scene: growth ended in the walk, which returns all "
+        f"{t.num_contacts} pairs")
+    del t, c, dense
+
+    # 15. timings at the bench scene, the full-width ray scene and the
+    # full-width pair scene
     def time_ms(fn, reps=7):
         fn()
         torch.cuda.synchronize()
@@ -722,6 +1029,52 @@ def main() -> int:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+    def stage_ms_of(module, stages, query):
+        """One query with CUDA events around the stages ``module`` calls by
+        name (a stage called twice is summed); what lies between them is
+        "the rest"."""
+        spans, saved = {}, {}
+
+        def timed(label, fn):
+            def call(*args, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*args, **kw)
+                e1.record()
+                spans.setdefault(label, []).append((e0, e1))
+                return out
+            return call
+
+        for label, name in stages:
+            saved[name] = getattr(module, name)
+            setattr(module, name, timed(label, saved[name]))
+        try:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            query()
+            b.record()
+            b.synchronize()
+        finally:
+            for name, fn in saved.items():
+                setattr(module, name, fn)
+        t = {label: sum(e0.elapsed_time(e1) for e0, e1 in spans[label])
+             for label, _ in stages}
+        t["the rest"] = a.elapsed_time(b) - sum(t.values())
+        return t
+
+    def host_ms(query):
+        """Median host time to enqueue one query, of 7."""
+        host = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            query()
+            host.append((time.perf_counter() - h0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(host)
 
     def stage_ms(alg):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -747,15 +1100,9 @@ def main() -> int:
                         f" ms" for k, n in enumerate(
                             ("bounding spheres", "build", "traversal")))
             + f" [{card}]")
-        host = []
-        for _ in range(7):
-            torch.cuda.synchronize()
-            h0 = time.perf_counter()
-            step(*tris, capacity, alg)
-            host.append((time.perf_counter() - h0) * 1e3)
-        torch.cuda.synchronize()
         log(f"time: host enqueue of one step, {route}: "
-            f"{statistics.median(host):.4f} ms (median of 7) [{card}]")
+            f"{host_ms(lambda: step(*tris, capacity, alg)):.4f} ms "
+            f"(median of 7) [{card}]")
         profile_step(torch, lambda: step(*tris, capacity, alg), step_ms,
                      route, card)
 
@@ -770,59 +1117,51 @@ def main() -> int:
         return ib.traverse_rays_tiles_fixed(ray_bvh, rp, rd, RAY_CAPACITY,
                                             alg=alg)
 
-    def ray_stage_ms():
-        """One ray query with CUDA events around the stages the ray module
-        calls by name; what lies between them is "the rest"."""
-        spans, saved = {}, {}
-
-        def timed(label, fn):
-            def call(*args, **kw):
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                out = fn(*args, **kw)
-                e1.record()
-                spans[label] = (e0, e1)
-                return out
-            return call
-
-        for label, name in ray_stages:
-            saved[name] = getattr(ray_tiles, name)
-            setattr(ray_tiles, name, timed(label, saved[name]))
-        try:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            ray_query()
-            b.record()
-            b.synchronize()
-        finally:
-            for name, fn in saved.items():
-                setattr(ray_tiles, name, fn)
-        t = {label: e0.elapsed_time(e1) for label, (e0, e1) in spans.items()}
-        t["the rest"] = a.elapsed_time(b) - sum(t.values())
-        return t
-
     ray_ms = time_ms(ray_query)
     log(f"time: ray query end to end, two-phase ({N_RAYS} rays, "
         f"{N_RAY_TRIS} leaves): {ray_ms:.4f} ms [{card}]")
-    stages = [ray_stage_ms() for _ in range(7)]
+    stages = [stage_ms_of(ray_tiles, ray_stages, ray_query)
+              for _ in range(7)]
     log("time: ray stages (median of 7) "
         + ", ".join(f"{n} {statistics.median(t[n] for t in stages):.4f} ms"
                     for n in stages[0]) + f" [{card}]")
-    host = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        ray_query()
-        host.append((time.perf_counter() - h0) * 1e3)
-    torch.cuda.synchronize()
-    log(f"time: host enqueue of one ray query: {statistics.median(host):.4f} "
+    log(f"time: host enqueue of one ray query: {host_ms(ray_query):.4f} "
         f"ms (median of 7) [{card}]")
     profile_step(torch, ray_query, ray_ms, "ray two-phase", card)
     rayfb_ms = time_ms(lambda: ray_query(ray_fallback), reps=3)
     log(f"time: ray query end to end, fallback {FALLBACK}: {rayfb_ms:.4f} ms "
         f"(median of 3) [{card}]")
+
+    # the full-width pair query (traversal only, on the two built BVHs)
+    pair_stages = {
+        "two-phase": (("tile the leaves", "_tiled_fields"),
+                      ("phase 1 (with B1)", "_phase1_tile_runs"),
+                      ("B2", "tile_run_counts"),
+                      ("regroup", "_regroup_emit_runs"),
+                      ("B3", "tile_group_emit"),
+                      ("finish", "_finish_contacts")),
+        "fallback": (("tile the leaves", "_tiled_fields"),
+                     ("phase 1 (with B1, B5)", "_phase1_tile_pairs"),
+                     ("group", "_group_pairs"),
+                     ("B4", "tile_group_contacts"),
+                     ("extract and finish", "_extract_contacts")),
+    }
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        def pair_query(alg=alg):
+            return ib.traverse_tiles_pair_fixed(
+                bvh, bvh2, PAIR_CAPACITY, alg=alg,
+                pair_capacity=PAIR_PAIR_CAPACITY)
+        pair_ms = time_ms(pair_query)
+        log(f"time: pair query end to end, {route} ({N_BENCH} x {N_BODY2} "
+            f"leaves): {pair_ms:.4f} ms [{card}]")
+        stages = [stage_ms_of(tiles, pair_stages[route], pair_query)
+                  for _ in range(7)]
+        log(f"time: pair stages, {route} (median of 7) "
+            + ", ".join(f"{n} {statistics.median(t[n] for t in stages):.4f} "
+                        f"ms" for n in stages[0]) + f" [{card}]")
+        log(f"time: host enqueue of one pair query, {route}: "
+            f"{host_ms(pair_query):.4f} ms (median of 7) [{card}]")
+        profile_step(torch, pair_query, pair_ms, f"pair {route}", card)
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -855,8 +1194,9 @@ def main() -> int:
             tjj = sj[:, None].long() * 32 + ar
             live = (torch.arange(si.shape[0], device=dev) < nsp)[:, None, None]
             valid = live & (tii < sub.shape[1])[:, :, None] & \
-                (tjj < tl.shape[1])[:, None, :] & \
-                (tii[:, :, None] <= tjj[:, None, :])
+                (tjj < tl.shape[1])[:, None, :]
+            if kw.get("triangle", True):
+                valid = valid & (tii[:, :, None] <= tjj[:, None, :])
             ops_n = int(valid.sum()) * sub.shape[2] * 6
             b = nbytes(sub, tl, si, sj, nsp) + out_b
         elif name == "tile_run_counts":
@@ -960,10 +1300,16 @@ def main() -> int:
              lfb["tile_group_contacts"]),
             ("tile_pair_contacts", (ray_pair_list(slot_args), slot_kw),
              l2p["tile_pair_contacts"] + lfb["tile_pair_contacts"])]
+    # the two-tree variants at the full-width pair scene
+    pair_rows = len(row_specs)
+    row_specs += [(n, seen_pair[n], pair_runs["two-phase"][1][n])
+                  for n in two_phase_kernels]
+    row_specs += [(n, seen_pair_fb[n], pair_runs["fallback"][1][n])
+                  for n in fallback_kernels[1:]]      # B1: the row above
     rows = []
-    for name, (args, kw), n_launches in row_specs:
+    for k, (name, (args, kw), n_launches) in enumerate(row_specs):
         wrapper, plain, source, replaces = kernels[name]
-        row = row_of(name, kw)
+        row = row_of(name, kw, pair=k >= pair_rows)
         k_ms = time_ms(lambda: wrapper(*args, **kw))
         p_ms = time_ms(lambda: plain(*args, **kw), reps=3)
         bytes_ms, ops_ms, live_ms = bound(name, args, kw)

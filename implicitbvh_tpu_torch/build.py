@@ -5,7 +5,9 @@ Counterpart of ``implicitbvh_tpu/build.py`` (``wrap_bounding_volumes``,
 The sort is ``torch.sort(stable=True)`` on the Morton key followed by one
 gather of every leaf field, which keeps the JAX package's stable order for
 equal codes.  BBox nodes are a plain per-level min/max over a perfect tree
-padded with ``finfo.max`` sentinels.  BSphere nodes are not ported yet.
+padded with ``finfo.max`` sentinels.  BSphere nodes take the level-by-level
+pairwise merge: the sphere merge is not associative, so it stays
+tree-structured.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from .morton import DefaultMortonAlgorithm, morton_encode
 from .options import DEFAULT_OPTIONS, BVHOptions
 from .tree import ImplicitTree, compute_skips
 from .utils import as_tensor
-from .volumes import BBox, BSphere, Volume, bbox_of_bsphere, center_coords
+from .volumes import (BBox, BSphere, Volume, bbox_of_bsphere, center_coords,
+                      convert_volume, merge, merge_into)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +95,59 @@ def _aggregate_bbox(leaves_vol: Volume, tree: ImplicitTree,
     return BBox(tuple(flo), tuple(fup))
 
 
+def _cat_volumes(parts) -> Volume:
+    """Concatenate a list of same-kind volume batches."""
+    if isinstance(parts[0], BSphere):
+        return BSphere(tuple(torch.cat([p.xs[k] for p in parts])
+                             for k in range(3)),
+                       torch.cat([p.r for p in parts]))
+    return BBox(tuple(torch.cat([p.los[k] for p in parts]) for k in range(3)),
+                tuple(torch.cat([p.ups[k] for p in parts]) for k in range(3)))
+
+
+def _aggregate(leaves_vol: Volume, tree: ImplicitTree, built_level: int,
+               node_kind) -> Volume:
+    """Nodes of ``node_kind`` in memory-index order (level 1 first).  BBox
+    nodes take :func:`_aggregate_bbox`; BSphere nodes the generic
+    level-by-level pairwise merge: leaf -> node conversion and
+    ``merge_into`` at the level above the leaves, ``merge`` above it, and a
+    parent whose right child is virtual is a copy of its left child.  Levels
+    above ``built_level`` are zero-filled."""
+    if node_kind is BBox:
+        return _aggregate_bbox(leaves_vol, tree, built_level)
+    if node_kind is not BSphere:
+        raise TypeError(f"unknown node kind {node_kind}")
+    dtype, dev = leaves_vol.dtype, leaves_vol.device
+    levels = tree.levels
+
+    def zero_level(m):
+        z = torch.zeros(m, dtype=dtype, device=dev)
+        return BSphere((z, z, z), z)
+
+    if levels < 2 or tree.real_nodes < 2:
+        return zero_level(max(tree.num_nodes, 0))
+
+    def merge_level(child, n_child, m, first):
+        pair = (lambda a, b: merge_into(node_kind, a, b)) if first else merge
+        if n_child == 2 * m:
+            return pair(child[0::2], child[1::2])
+        merged = pair(child[0:n_child - 1:2], child[1:n_child:2])
+        last = child[n_child - 1:n_child]
+        if first:
+            last = convert_volume(node_kind, last)
+        return _cat_volumes([merged, last])
+
+    per_level = {levels - 1: merge_level(
+        leaves_vol, tree.real_leaves, tree.level_nodes(levels - 1), True)}
+    for lvl in range(levels - 2, max(built_level, 1) - 1, -1):
+        per_level[lvl] = merge_level(
+            per_level[lvl + 1], tree.level_nodes(lvl + 1),
+            tree.level_nodes(lvl), False)
+    return _cat_volumes([per_level[lvl] if lvl in per_level
+                         else zero_level(tree.level_nodes(lvl))
+                         for lvl in range(1, levels)])
+
+
 def compute_build_level(tree: ImplicitTree, built_level) -> int:
     """Integer or fractional (0..1) built level."""
     if isinstance(built_level, int):
@@ -134,17 +190,23 @@ class BVH:
     def device(self):
         return self.leaves.index.device
 
+    @property
+    def node_kind(self):
+        return BSphere if isinstance(self.nodes, BSphere) else BBox
+
+    @property
+    def leaf_kind(self):
+        return BSphere if isinstance(self.leaves.volume, BSphere) else BBox
+
 
 def build(bounding_volumes: Union[Volume, Leaves], node_kind=BBox, *,
           built_level: Union[int, float] = 1,
           options: BVHOptions = DEFAULT_OPTIONS,
           indices: Optional[torch.Tensor] = None) -> BVH:
     """Build a BVH over a batch of :class:`BSphere`/:class:`BBox` leaves
-    (or pre-wrapped :class:`Leaves` carrying custom user indices).  Runs on
+    (or pre-wrapped :class:`Leaves` carrying custom user indices), with
+    nodes of ``node_kind`` (BBox, or BSphere over sphere leaves).  Runs on
     the leaves' device."""
-    if node_kind is not BBox:
-        raise NotImplementedError(
-            "only BBox nodes are ported; BSphere nodes wait (ROADMAP)")
     if isinstance(bounding_volumes, Leaves):
         leaves = bounding_volumes
         leaves = Leaves(leaves.volume,
@@ -158,10 +220,10 @@ def build(bounding_volumes: Union[Volume, Leaves], node_kind=BBox, *,
     alg = options.morton
     if not isinstance(alg, DefaultMortonAlgorithm):
         raise NotImplementedError(
-            f"morton algorithm {type(alg).__name__} is not ported (ROADMAP)")
+            f"morton algorithm {type(alg).__name__} is not ported (ROADMAP A3)")
     morton = morton_encode(center_coords(leaves.volume), alg)
     leaves = _sort_by_morton(Leaves(leaves.volume, leaves.index, morton))
-    nodes = _aggregate_bbox(leaves.volume, tree, built_ilevel)
+    nodes = _aggregate(leaves.volume, tree, built_ilevel, node_kind)
     skips = compute_skips(tree, options.index_dtype, leaves.index.device)
     return BVH(skips=skips, nodes=nodes, leaves=leaves,
                built_level=built_ilevel, tree=tree)

@@ -9,7 +9,8 @@ The dict holds:
 - the sorted leaf volume fields: ``leaf_x0, leaf_x1, leaf_x2, leaf_r``
   (spheres) or ``leaf_lo0..2, leaf_up0..2`` (boxes);
 - ``"index"`` (user indices) and ``"morton"`` (codes, any integer type);
-- the BBox node fields ``node_lo0..2, node_up0..2``;
+- the node fields: ``node_lo0..2, node_up0..2`` (BBox nodes) or
+  ``node_x0..2, node_r`` (BSphere nodes);
 - ``"skips"``, ``"built_level"`` and ``"num_leaves"``.
 
 ``rays_from_numpy`` turns numpy ``(3, N)`` ray origins and directions into
@@ -43,8 +44,11 @@ def bvh_from_numpy(d: dict, device=None) -> BVH:
     morton = torch.as_tensor(np.asarray(d["morton"]).astype(np.int64),
                              device=dev)
     leaves = Leaves(vol, t("index", torch.int32), morton)
-    nodes = BBox(tuple(t(f"node_lo{k}") for k in range(3)),
-                 tuple(t(f"node_up{k}") for k in range(3)))
+    if "node_r" in d:
+        nodes = BSphere(tuple(t(f"node_x{k}") for k in range(3)), t("node_r"))
+    else:
+        nodes = BBox(tuple(t(f"node_lo{k}") for k in range(3)),
+                     tuple(t(f"node_up{k}") for k in range(3)))
     return BVH(skips=t("skips", torch.int32), nodes=nodes, leaves=leaves,
                built_level=int(d["built_level"]),
                tree=ImplicitTree.from_num_leaves(int(d["num_leaves"])))

@@ -32,7 +32,7 @@ class BVHOptions:
     def __post_init__(self):
         if self.index_bits == 64:
             raise NotImplementedError(
-                "BVHOptions(index_bits=64) is not ported yet (ROADMAP)")
+                "BVHOptions(index_bits=64) is not ported yet (ROADMAP A1)")
         if self.index_bits != 32:
             raise ValueError("index_bits must be 32 or 64")
         if self.capacity_growth <= 1.0:

@@ -1,23 +1,29 @@
 """Ray queries: batched forward rays against the leaves of a BVH.
 
 Counterpart of ``implicitbvh_tpu/raytrace.py``.  ``traverse_rays`` validates
-its input and dispatches to the tile ray engine (``traverse/ray_tiles.py``),
-which is what the JAX package's default resolves to on an accelerator.  The
-stackless leaf-vs-tree ray walk and the breadth-first variant are not ported:
-asking for them raises ``NotImplementedError`` (ROADMAP A11).
+its input and dispatches to the tile ray engine (``traverse/ray_tiles.py``,
+the default) or, with ``LVTTraversal()``, to the stackless leaf-vs-tree
+walk of ``traverse/walk.py`` with one lane per ray and ``isintersection``
+as the test (torch ops, no kernel; its loop syncs with the host).  The
+breadth-first variant is not ported: ``BFSTraversal()`` raises
+``NotImplementedError`` (ROADMAP A11).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from .build import BVH
+from .build import BVH, Leaves
 from .options import DEFAULT_OPTIONS, BVHOptions
+from .traverse.lvt import _scan
 from .traverse.tiles import TileTraversal
 from .traverse.types import (BFSTraversal, BVHTraversal, LVTTraversal,
                              TraversalAlgorithm)
+from .traverse.walk import stackless_walk
+from .volumes import isintersection
 
 
 def _prep_rays(points, directions, dtype, device):
@@ -32,14 +38,59 @@ def _prep_rays(points, directions, dtype, device):
     return tuple(points), tuple(directions)
 
 
+def _ray_closures(bvh: BVH, points, directions, narrow):
+    """Node test, leaf test and emitter of the ray walk; ``points`` and
+    ``directions`` are coordinate tuples of (K,) lane tensors."""
+
+    def node_test(node_vol):
+        return isintersection(node_vol, points, directions)
+
+    def leaf_test(leaf: Leaves):
+        hit = isintersection(leaf.volume, points, directions)
+        if narrow is not None:
+            hit = hit & narrow(leaf, points, directions)
+        return hit
+
+    iray = torch.arange(1, points[0].shape[0] + 1, dtype=bvh.skips.dtype,
+                        device=bvh.device)
+
+    def emit(leaf: Leaves):
+        return torch.stack([leaf.index, iray], dim=-1)
+
+    return node_test, leaf_test, emit
+
+
+def _walk_rays(bvh: BVH, points, directions, start_level: int, narrow, **kw):
+    return stackless_walk(
+        bvh.tree, bvh.nodes, bvh.leaves, bvh.skips, start_level,
+        *_ray_closures(bvh, points, directions, narrow),
+        num_lanes=points[0].shape[0], **kw)
+
+
+def rays_count(bvh: BVH, points, directions, start_level: int, narrow=None):
+    """Counting pass of the ray walk: per-ray hit counts (K,)."""
+    return _walk_rays(bvh, points, directions, start_level, narrow)[0]
+
+
+def rays_write(bvh: BVH, points, directions, offsets, start_level: int,
+               capacity: int, narrow=None):
+    """Writing pass of the ray walk at per-ray offsets."""
+    return _walk_rays(bvh, points, directions, start_level, narrow,
+                      capacity=capacity, offsets=offsets)[1]
+
+
 def traverse_rays_fixed(bvh: BVH, points, directions, capacity: int, *,
                         start_level: int = 1, narrow=None):
-    """The fixed-capacity stackless ray walk of the JAX package; not
-    ported (ROADMAP A11).  Use
+    """Fixed-capacity stackless ray walk; returns ``(total, contacts)`` as
+    tensors on the BVH's device, contacts ``(leaf user index, 1-based ray
+    index)`` ray by ray.  ``points``/``directions`` are (3, N).  The walk's
+    loop syncs with the host; the sync-free fixed path is
     :func:`~.traverse.ray_tiles.traverse_rays_tiles_fixed`."""
-    raise NotImplementedError(
-        "the stackless ray walk is not ported (ROADMAP A11); use "
-        "traverse_rays_tiles_fixed")
+    p, d = _prep_rays(points, directions, bvh.leaves.volume.dtype, bvh.device)
+    counts = rays_count(bvh, p, d, start_level, narrow)
+    offsets, total = _scan(counts)
+    return total, rays_write(bvh, p, d, offsets, start_level, capacity,
+                             narrow)
 
 
 def traverse_rays(bvh: BVH, points, directions,
@@ -55,15 +106,17 @@ def traverse_rays(bvh: BVH, points, directions,
     order.  ``narrow(leaves, p, d)`` is an optional vectorised narrow-phase
     predicate.
 
-    With no ``alg`` the tile engine runs (``TileTraversal()``), as in the
-    JAX package on an accelerator.  ``LVTTraversal()`` and
-    ``BFSTraversal()`` raise ``NotImplementedError`` (ROADMAP A11).
+    With no ``alg`` the tile engine runs (``TileTraversal()``), on every
+    device.  ``LVTTraversal()`` takes the stackless walk from
+    ``start_level``, with a capacity of the hit count rounded up to a power
+    of two (or ``cache``'s when it has the room).  ``BFSTraversal()``
+    raises ``NotImplementedError`` (ROADMAP A11).
     """
     if alg is None:
         alg = TileTraversal()
     if not (bvh.built_level <= start_level <= bvh.tree.levels):
         raise ValueError(f"invalid start_level {start_level}")
-    p, _ = _prep_rays(points, directions, bvh.leaves.volume.dtype, bvh.device)
+    p, d = _prep_rays(points, directions, bvh.leaves.volume.dtype, bvh.device)
     if p[0].shape[0] == 0 or bvh.tree.real_nodes < 1:
         z = torch.zeros((0,), dtype=torch.int32, device=bvh.device)
         return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z,
@@ -75,8 +128,21 @@ def traverse_rays(bvh: BVH, points, directions,
         return traverse_rays_tiles(bvh, points, directions, alg=ralg,
                                    narrow=narrow, cache=cache,
                                    options=options)
-    if isinstance(alg, (LVTTraversal, BFSTraversal)):
+    if isinstance(alg, BFSTraversal):
         raise NotImplementedError(
-            f"{type(alg).__name__} ray traversal (the tree walks) is not "
-            "ported (ROADMAP A11); use TileTraversal()")
-    raise TypeError(f"unknown traversal algorithm {alg!r}")
+            "BFSTraversal ray traversal is not ported (ROADMAP A11); use "
+            "TileTraversal() or LVTTraversal()")
+    if not isinstance(alg, LVTTraversal):
+        raise TypeError(f"unknown traversal algorithm {alg!r}")
+    counts = rays_count(bvh, p, d, start_level, narrow)
+    offsets, total = _scan(counts)
+    total = int(total)
+    need = max(total, options.min_capacity)
+    if cache is not None and cache.cache1.dim() == 2 \
+            and cache.cache1.shape[0] >= need:
+        capacity = cache.cache1.shape[0]
+    else:
+        capacity = 1 << math.ceil(math.log2(need))
+    out = rays_write(bvh, p, d, offsets, start_level, capacity, narrow)
+    return BVHTraversal(num_contacts=total, cache1=out, cache2=offsets,
+                        start_level1=start_level)

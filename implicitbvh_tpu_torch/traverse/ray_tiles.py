@@ -28,13 +28,12 @@ tile self-contact (``traverse/tiles.py``):
 The hit set is that of ``volumes.isintersection`` of every ray against every
 leaf.  The capacity arithmetic is the JAX package's, copied so that the
 overflow bits and growth agree.  The fixed path makes no host sync.  Growth
-past the slot caps' ceilings ends in the JAX package's LVT walk, which is
-not ported: it raises ``NotImplementedError`` (ROADMAP A11).
+past the slot caps' ceilings ends in the leaf-vs-tree ray walk
+(``raytrace.traverse_rays`` with ``LVTTraversal()``).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -46,11 +45,11 @@ from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
                                 tile_group_emit, tile_run_counts)
 from ..volumes import _ray_box_test, _reciprocal
 from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal, _extract_contacts,
-                    _finish_contacts, _grow_alg, _grow_capacity,
-                    _merge_cached_alg, _merge_streams, _moment_decode,
-                    _popcount, _regroup_emit_runs, _run_chunk_cap,
+                    _finish_contacts, _grow_tiles, _merge_cached_alg,
+                    _merge_streams, _moment_decode, _popcount,
+                    _pow2_capacity, _regroup_emit_runs, _run_chunk_cap,
                     _scatter_drop, _step_caps, _tiled_fields, _wrap_int32)
-from .types import BVHTraversal
+from .types import BVHTraversal, LVTTraversal
 
 # rays want a deeper per-ray slot cap than self-contact: one ray can pass
 # through several leaves of one tile (a row is a ray)
@@ -278,45 +277,22 @@ def traverse_rays_tiles(bvh: BVH, points, directions, *,
                         cache: Optional[BVHTraversal] = None,
                         options: BVHOptions = DEFAULT_OPTIONS
                         ) -> BVHTraversal:
-    """Tile ray traversal with overflow-driven growth: re-runs
-    :func:`traverse_rays_tiles_fixed` with grown capacities (bit 0) or slot
-    caps (bit 1) until nothing overflows.  ``cache`` (a previous result)
-    starts from its capacities.  A scene still overflowing after eight runs
-    would take the JAX package's LVT walk, which is not ported: that raises
-    ``NotImplementedError`` (ROADMAP A11)."""
+    """Tile ray traversal with overflow-driven growth
+    (``tiles._grow_tiles`` around :func:`traverse_rays_tiles_fixed`), from
+    a capacity of four hits per ray, ending in ``traverse_rays`` with
+    ``LVTTraversal()`` for a scene past the slot caps' ceilings."""
+    from ..raytrace import traverse_rays  # here: raytrace imports this module
     alg = _merge_cached_alg(alg or RAY_ALG, cache)
     dev = bvh.device
     n_rays = int(torch.as_tensor(points).shape[1])
     if n_rays == 0 or bvh.tree.real_nodes < 1:
         z = torch.zeros((0,), dtype=torch.int32, device=dev)
         return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z)
-    if cache is not None and cache.cache1.dim() == 2 \
-            and cache.cache1.shape[0] > 0:
-        capacity = cache.cache1.shape[0]
-    else:
-        capacity = max(options.min_capacity, 4 * n_rays)
-        capacity = 1 << math.ceil(math.log2(capacity))
-    if cache is not None and cache.pair_capacity > 0:
-        pair_capacity = cache.pair_capacity
-    else:
-        pair_capacity = _ray_pair_capacity(-(-n_rays // alg.tile))
-    for _ in range(8):
-        total, contacts, overflow, num_checks = traverse_rays_tiles_fixed(
-            bvh, points, directions, capacity, alg=alg,
-            pair_capacity=pair_capacity, narrow=narrow)
-        ov = int(overflow)
-        if ov == 0:
-            return BVHTraversal(
-                num_contacts=int(total), cache1=contacts,
-                cache2=torch.zeros((0,), dtype=torch.int32, device=dev),
-                num_checks=int(num_checks), pair_capacity=pair_capacity,
-                tile_alg=alg)
-        if ov & 1:
-            capacity = _grow_capacity(capacity, options.capacity_growth)
-            pair_capacity = _grow_capacity(
-                pair_capacity, options.capacity_growth, 8192)
-        if ov & 2:
-            alg = _grow_alg(alg)
-    raise NotImplementedError(
-        "the scene is too dense for the tile engine's slot caps; the LVT "
-        "ray walk fallback is not ported (ROADMAP A11)")
+    return _grow_tiles(
+        lambda c, a, pc: traverse_rays_tiles_fixed(
+            bvh, points, directions, c, alg=a, pair_capacity=pc,
+            narrow=narrow),
+        lambda: traverse_rays(bvh, points, directions, LVTTraversal(),
+                              narrow=narrow, options=options),
+        alg, _pow2_capacity(4 * n_rays, options),
+        _ray_pair_capacity(-(-n_rays // alg.tile)), cache, options, dev)

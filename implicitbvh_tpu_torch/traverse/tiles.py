@@ -1,10 +1,12 @@
-"""Tile self-contact traversal: the two-phase route and the
-pair-granularity fallback.
+"""Tile contact traversal, of one BVH with itself and of two BVHs: the
+two-phase route and the pair-granularity fallback.
 
 Counterpart of ``implicitbvh_tpu/traverse/tiles.py``: Morton-sorted leaves
 form tiles of G, and a supertile pass with the band-bit kernel
-(``ops/subtile.py``) finds the candidate tile pairs.  Then one of two
-routes runs, chosen as in the JAX package:
+(``ops/subtile.py``) finds the candidate tile pairs: the upper triangle of
+the tile grid for self-contact, the full grid of (tile of bvh1, tile of
+bvh2) for two trees.  Then one of two routes runs, chosen as in the JAX
+package:
 
 - **two-phase** (``pair_cap <= 128`` and ``capacity % 1024 == 0``): the
   pairs form aligned runs of R b-tiles; the count kernel
@@ -22,12 +24,13 @@ routes runs, chosen as in the JAX package:
   padded contact slots, and each output slot gathers its contact from
   them.
 
-User indices finish the list on both routes.  The capacity arithmetic is
-the JAX package's, copied so the overflow bits and growth agree.  The fixed
-path makes no host sync: every count the kernels need (live slots, steps,
-pairs) stays on the device.  Growth past the slot caps' ceilings ends in
-the JAX package's LVT walk, which is not ported: it raises
-``NotImplementedError`` (ROADMAP A11).
+User indices finish the list on both routes: sorted ``(min, max)`` pairs
+for self-contact, tree order ``(index in bvh1, index in bvh2)`` for two
+trees, where the kernels run without the j > i triangle on two field sets.
+The capacity arithmetic is the JAX package's, copied so the overflow bits
+and growth agree.  The fixed paths make no host sync: every count the
+kernels need (live slots, steps, pairs) stays on the device.  Growth past
+the slot caps' ceilings ends in the leaf-vs-tree walk (``traverse/lvt.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from ..ops.subtile import subtile_band_bits
 from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
                                 tile_group_emit, tile_run_counts)
 from ..volumes import BSphere
-from .types import BVHTraversal, TraversalAlgorithm
+from .types import BVHTraversal, LVTTraversal, TraversalAlgorithm
 
 SS = 32                 # tiles per supertile
 _SENTINEL = (1 << 31) - 1   # sorts after every live key
@@ -190,27 +193,35 @@ def _tiled_fields(bvh: BVH, G: int, NB: int = 4):
     return fields, sphere, tiles, sub, T
 
 
-def _phase1_superpairs(tiles, P_cap: int, sp_round: int = 16):
-    """Supertile-vs-supertile AABB overlap (upper triangle) compacted to a
-    superpair list; returns ``(si, sj, nsp, overflow)``."""
+def _supertile_bounds(tiles):
+    """(lo (3, S), up (3, S), S): bounds of the supertiles of SS tiles."""
     T = tiles.shape[1]
     S = -(-T // SS)
     pad = S * SS - T
     inf = float("inf")
     lo = torch.nn.functional.pad(tiles[:3], (0, pad), value=inf)
     up = torch.nn.functional.pad(tiles[3:], (0, pad), value=-inf)
-    lo = lo.view(3, S, SS).amin(2)
-    up = up.view(3, S, SS).amax(2)
-    ov = torch.ones((S, S), dtype=torch.bool, device=tiles.device)
+    return lo.view(3, S, SS).amin(2), up.view(3, S, SS).amax(2), S
+
+
+def _phase1_superpairs(tiles, P_cap: int, tiles_b=None):
+    """Supertile-vs-supertile AABB overlap compacted to a superpair list:
+    the upper triangle of one tile set's grid, or with ``tiles_b`` the full
+    S1 x S2 grid of two sets.  Returns ``(si, sj, nsp, overflow)``."""
+    lo1, up1, S1 = _supertile_bounds(tiles)
+    lo2, up2, S2 = (lo1, up1, S1) if tiles_b is None \
+        else _supertile_bounds(tiles_b)
+    ov = torch.ones((S1, S2), dtype=torch.bool, device=tiles.device)
     for k in range(3):
-        ov &= (up[k][:, None] >= lo[k][None, :]) & \
-              (lo[k][:, None] <= up[k][None, :])
-    ov &= torch.ones_like(ov).triu()
-    SP_cap = max(S * SUPERPAIRS_PER_SUPERTILE, 64, P_cap // 64)
-    SP_cap = -(-SP_cap // sp_round) * sp_round
-    kA = torch.arange(S * S, dtype=torch.int32, device=tiles.device)
+        ov &= (up1[k][:, None] >= lo2[k][None, :]) & \
+              (lo1[k][:, None] <= up2[k][None, :])
+    if tiles_b is None:
+        ov &= torch.ones_like(ov).triu()
+    SP_cap = max(max(S1, S2) * SUPERPAIRS_PER_SUPERTILE, 64, P_cap // 64)
+    SP_cap = -(-SP_cap // 16) * 16
+    kA = torch.arange(S1 * S2, dtype=torch.int32, device=tiles.device)
     spacked, nsp = _compact_flat(ov.reshape(-1), kA, SP_cap)
-    return spacked // S, spacked % S, nsp, nsp > SP_cap
+    return spacked // S2, spacked % S2, nsp, nsp > SP_cap
 
 
 def _leader_group(ti_flat, valid, payloads, pads, W: int, S_cap: int):
@@ -277,17 +288,28 @@ def _runs_from_bits(bits, si, sj, G: int, W: int, S_cap: int, R: int,
     return a_idx, grouped[0], bm_words, nsteps, num_checks, overflow
 
 
+def _superpair_bits(tiles, sub, P_cap: int, tiles_b=None):
+    """Superpairs and their band bits: sub-bands of the a tiles (``sub``)
+    against the b tiles (``tiles_b``, or the a tiles themselves and then
+    only the upper triangle).  Returns ``(bits, si, sj, overflow)``."""
+    si, sj, nsp, overflow = _phase1_superpairs(tiles, P_cap, tiles_b)
+    bits = subtile_band_bits(
+        sub, tiles if tiles_b is None else tiles_b, si, sj,
+        nsp.clamp(max=si.shape[0]).reshape(1), triangle=tiles_b is None)
+    return bits, si, sj, overflow
+
+
 def _phase1_tile_runs(tiles, sub, G: int, P_cap: int, W: int, S_cap: int,
-                      R: int, pad_run: int, NB: int = 4):
+                      R: int, pad_run: int, NB: int = 4, tiles_b=None):
     """Superpairs -> band bits -> W-grouped run lists for the count kernel.
+    With ``tiles_b`` (the JAX package's ``_phase1_cross_runs``): (tile of
+    bvh1, aligned run of bvh2 tiles) over the full grid, with bvh1's
+    sub-band bits.
 
     Returns ``(a_idx, run_idx, bm_words, nsteps, num_checks, overflow)``."""
     if R not in (8, 16, 32) or G % NB:
         raise ValueError(f"need run_r in (8, 16, 32) and tile % bands == 0")
-    si, sj, nsp, overflow = _phase1_superpairs(tiles, P_cap)
-    SP_cap = si.shape[0]
-    bits = subtile_band_bits(sub, tiles, si, sj,
-                             nsp.clamp(max=SP_cap).reshape(1), triangle=True)
+    bits, si, sj, overflow = _superpair_bits(tiles, sub, P_cap, tiles_b)
     *out, ov2 = _runs_from_bits(bits, si, sj, G, W, S_cap, R, pad_run, NB)
     return (*out, overflow | ov2)
 
@@ -302,17 +324,18 @@ def _fold_sub4(sub):
     return torch.cat([g[:3].amin(3), g[3:].amax(3)])
 
 
-def _phase1_tile_pairs(tiles, sub, P_cap: int):
+def _phase1_tile_pairs(tiles, sub, P_cap: int, tiles_b=None):
     """Superpairs -> band bits of 4 folded bands -> compacted pair list.
+    With ``tiles_b`` (the JAX package's ``_phase1_cross_pairs``): the
+    overlapping (tile of bvh1, tile of bvh2) pairs of the full grid.
 
     Returns ``(packed, band, npairs)``: (P_cap,) int32 pairs ``ti << 16 |
-    tj`` (int32 wrap-around) with ti <= tj, their (P_cap,) int32 band
-    masks, and the 0-dim int32 pair count (``P_cap + 1`` on any phase-1
-    overflow)."""
-    si, sj, nsp, sp_overflow = _phase1_superpairs(tiles, P_cap)
+    tj`` (int32 wrap-around; ti <= tj on one tile set), their (P_cap,)
+    int32 band masks, and the 0-dim int32 pair count (``P_cap + 1`` on any
+    phase-1 overflow)."""
+    bits, si, sj, sp_overflow = _superpair_bits(tiles, _fold_sub4(sub),
+                                                P_cap, tiles_b)
     SP_cap = si.shape[0]
-    bits = subtile_band_bits(_fold_sub4(sub), tiles, si, sj,
-                             nsp.clamp(max=SP_cap).reshape(1), triangle=True)
     # superpair axis minor: every mega-tile of the compactor mixes all
     # superpairs, so its survivor density stays near the mean
     bits_t = bits.permute(1, 2, 0).contiguous()          # (SS, SS, SP_cap)
@@ -542,6 +565,98 @@ def _merge_streams(parts, capacity: int):
             torch.where(in_range, gjs[flat].int(), 0), total)
 
 
+def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
+                 alg: Optional[TileTraversal], pair_capacity: Optional[int],
+                 narrow):
+    """The fixed-capacity tile traversal of ``bvh1`` with itself (``bvh2``
+    None: the j > i triangle, sorted pairs) or against ``bvh2`` (the full
+    grid, tree-order pairs).  The a side (rows, sub-bands, steps) is bvh1,
+    the b side (runs, columns, pads) bvh2."""
+    alg = alg or TileTraversal()
+    G = alg.tile
+    NB = alg.bands
+    pair = bvh2 is not None
+    two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
+    f1, sphere, tiles1, sub1, T1 = _tiled_fields(bvh1, G, NB)
+    if pair:
+        if bvh1.leaf_kind is not bvh2.leaf_kind:
+            raise NotImplementedError(
+                "tile pair traversal needs leaves of one kind in both BVHs; "
+                "LVTTraversal() takes mixed kinds")
+        f2, _, tiles2, _, T2 = _tiled_fields(bvh2, G)
+        fsets, leaves2 = (f1, f2), bvh2.leaves
+    else:
+        fsets, tiles2, T2, leaves2 = (f1,), None, T1, bvh1.leaves
+    if max(T1, T2) >= 1 << 16:
+        raise ValueError("tile count exceeds 65536; raise the tile size")
+    if pair_capacity is None:
+        pair_capacity = _pair_capacity_for((T1 + T2) // 2)
+    narrow_fn = None
+    if narrow is not None:
+        leaves1 = bvh1.leaves
+
+        def narrow_fn(gi, gj):
+            return narrow(leaves1[gi], leaves2[gj])
+
+    mask_kind = "sphere" if sphere else "box"
+    finish = dict(leaf_index_b=leaves2.index, sort_pairs=not pair)
+    W = alg.count_w
+    if not two_phase:          # the pair-granularity fallback
+        packed, band, npairs = _phase1_tile_pairs(tiles1, sub1,
+                                                  pair_capacity, tiles2)
+        S_cap, _ = _step_caps(pair_capacity // W + T1)
+        a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W, S_cap,
+                                            T2)
+        pair_overflow = (npairs > pair_capacity) | (nsteps > S_cap)
+        gi, gj, counts, slot_overflow = tile_group_contacts(
+            a_idx, b_idx, nsteps.reshape(1), *fsets, mask_kind=mask_kind,
+            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=not pair)
+        total, contacts = _extract_contacts(
+            gi, gj, counts, bvh1.leaves.index, narrow_fn, capacity, **finish)
+        overflow = ((pair_overflow | (total > capacity)).int()
+                    | (slot_overflow.int() << 1))
+        lane = torch.arange(band.shape[0], device=band.device)
+        num_checks = (torch.where(lane < npairs, _popcount(band), 0).sum()
+                      .to(torch.float32) * float((G // N_BANDS) * G))
+        return total, contacts, overflow, num_checks
+    R = alg.run_r
+    S_cap, chunk = _step_caps(pair_capacity // W + T1)
+    ch_cap = _run_chunk_cap(W, R, NB)
+    if chunk > ch_cap:
+        S_cap = -(-S_cap // ch_cap) * ch_cap
+    pad_run = -(-T2 // R)
+    a_idx, run_idx, bm_words, nsteps, num_checks, pair_overflow = \
+        _phase1_tile_runs(tiles1, sub1, G, pair_capacity, W, S_cap, R,
+                          pad_run, NB, tiles2)
+    DK = 0 if pair else alg.decode_k    # the pair path has no decode route
+    counts, colmax, *words = tile_run_counts(
+        a_idx, run_idx, bm_words, nsteps.reshape(1), *fsets,
+        mask_kind=mask_kind, R=R, NB=NB, dedup=not pair, moments=bool(DK))
+    slot_overflow = (counts > alg.pair_cap).any()
+
+    W2 = alg.emit_w
+    S2_cap, _ = _step_caps(T1 + capacity // (8 * W2))
+    E2_cap = max(4096, capacity // 8)
+    D_cap = min(max(8192, capacity // 8), E2_cap * R, 1 << 17) if DK else 0
+    a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
+        a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T2, R,
+        NB, decode_k=DK, D_cap=D_cap)
+    parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] if DK \
+        else []
+    gi, gj, tot, flags = tile_group_emit(
+        a_idx2, b_idx2, nsteps2.reshape(1), *fsets, mask_kind=mask_kind,
+        ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=not pair,
+        CAP=capacity)
+    cap_overflow = (nsteps2 > S2_cap) | over2 | ((flags & 1) > 0)
+    slot_overflow = slot_overflow | ((flags & 2) > 0)
+    gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
+    total, contacts = _finish_contacts(gi, gj, total, bvh1.leaves.index,
+                                       narrow_fn, capacity, **finish)
+    overflow = ((pair_overflow | cap_overflow | (total > capacity)).int()
+                | (slot_overflow.int() << 1))
+    return total, contacts, overflow, num_checks
+
+
 def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
                          alg: Optional[TileTraversal] = None,
                          pair_capacity: Optional[int] = None, narrow=None):
@@ -553,119 +668,104 @@ def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
     (bit 0: a buffer capacity, bit 1: a slot cap; results are incomplete
     when it is set) and the number of leaf tests of live bands.
     """
-    alg = alg or TileTraversal()
-    G = alg.tile
-    NB = alg.bands
-    two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
-    fields, sphere, tiles, sub, T = _tiled_fields(bvh, G, NB)
-    if T >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
-    if pair_capacity is None:
-        pair_capacity = _pair_capacity_for(T)
-    narrow_fn = None
-    if narrow is not None:
-        leaves = bvh.leaves
-
-        def narrow_fn(gi, gj):
-            return narrow(leaves[gi], leaves[gj])
-
-    mask_kind = "sphere" if sphere else "box"
-    W = alg.count_w
-    if not two_phase:          # the pair-granularity fallback
-        packed, band, npairs = _phase1_tile_pairs(tiles, sub, pair_capacity)
-        S_cap, _ = _step_caps(pair_capacity // W + T)
-        a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W, S_cap,
-                                            T)
-        pair_overflow = (npairs > pair_capacity) | (nsteps > S_cap)
-        gi, gj, counts, slot_overflow = tile_group_contacts(
-            a_idx, b_idx, nsteps.reshape(1), fields, mask_kind=mask_kind,
-            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=True)
-        total, contacts = _extract_contacts(gi, gj, counts, bvh.leaves.index,
-                                            narrow_fn, capacity)
-        overflow = ((pair_overflow | (total > capacity)).int()
-                    | (slot_overflow.int() << 1))
-        lane = torch.arange(band.shape[0], device=band.device)
-        num_checks = (torch.where(lane < npairs, _popcount(band), 0).sum()
-                      .to(torch.float32) * float((G // N_BANDS) * G))
-        return total, contacts, overflow, num_checks
-    R = alg.run_r
-    S_cap, chunk = _step_caps(pair_capacity // W + T)
-    ch_cap = _run_chunk_cap(W, R, NB)
-    if chunk > ch_cap:
-        S_cap = -(-S_cap // ch_cap) * ch_cap
-    pad_run = -(-T // R)
-    a_idx, run_idx, bm_words, nsteps, num_checks, pair_overflow = \
-        _phase1_tile_runs(tiles, sub, G, pair_capacity, W, S_cap, R,
-                          pad_run, NB)
-    DK = alg.decode_k
-    counts, colmax, *words = tile_run_counts(
-        a_idx, run_idx, bm_words, nsteps.reshape(1), fields,
-        mask_kind=mask_kind, R=R, NB=NB, dedup=True, moments=bool(DK))
-    slot_overflow = (counts > alg.pair_cap).any()
-
-    W2 = alg.emit_w
-    S2_cap, _ = _step_caps(T + capacity // (8 * W2))
-    E2_cap = max(4096, capacity // 8)
-    D_cap = min(max(8192, capacity // 8), E2_cap * R, 1 << 17) if DK else 0
-    a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
-        a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T, R,
-        NB, decode_k=DK, D_cap=D_cap)
-    parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] if DK \
-        else []
-    gi, gj, tot, flags = tile_group_emit(
-        a_idx2, b_idx2, nsteps2.reshape(1), fields, mask_kind=mask_kind,
-        ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=True, CAP=capacity)
-    cap_overflow = (nsteps2 > S2_cap) | over2 | ((flags & 1) > 0)
-    slot_overflow = slot_overflow | ((flags & 2) > 0)
-    gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
-    total, contacts = _finish_contacts(gi, gj, total, bvh.leaves.index,
-                                       narrow_fn, capacity)
-    overflow = ((pair_overflow | cap_overflow | (total > capacity)).int()
-                | (slot_overflow.int() << 1))
-    return total, contacts, overflow, num_checks
+    return _tiles_fixed(bvh, None, capacity, alg, pair_capacity, narrow)
 
 
-def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
-                   narrow=None, cache: Optional[BVHTraversal] = None,
-                   options: BVHOptions = DEFAULT_OPTIONS) -> BVHTraversal:
-    """Tile self-contact with overflow-driven growth: re-runs
-    :func:`traverse_tiles_fixed` with grown capacities (bit 0) or slot caps
-    (bit 1) until nothing overflows.  ``cache`` (a previous result) starts
-    from its capacities.  A scene still overflowing after eight runs would
-    take the JAX package's LVT walk, which is not ported: that raises
-    ``NotImplementedError`` (ROADMAP A11)."""
-    alg = _merge_cached_alg(alg or TileTraversal(), cache)
-    dev = bvh.device
-    if bvh.tree.real_nodes <= 1:
-        z = torch.zeros((0,), dtype=torch.int32, device=dev)
-        return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z)
+def traverse_tiles_pair_fixed(bvh1: BVH, bvh2: BVH, capacity: int, *,
+                              alg: Optional[TileTraversal] = None,
+                              pair_capacity: Optional[int] = None,
+                              narrow=None):
+    """Fixed-capacity tile traversal of two BVHs, with no host sync.
+
+    Returns ``(total, contacts, overflow, num_checks)`` as
+    :func:`traverse_tiles_fixed` does; the contacts are tree-order
+    ``(index in bvh1, index in bvh2)`` pairs, ``(i, i)`` and symmetric
+    pairs included, in the order the route emits them.  Both BVHs must
+    have leaves of one kind.  ``bvh1`` is tiled with ``alg.bands``
+    sub-bands, ``bvh2`` needs none; ``alg.decode_k`` is not read.
+    """
+    return _tiles_fixed(bvh1, bvh2, capacity, alg, pair_capacity, narrow)
+
+
+def _grow_tiles(run_fixed, walk, alg, capacity: int, pair_capacity: int,
+                cache, options: BVHOptions, dev, **levels) -> BVHTraversal:
+    """Overflow-driven growth around a fixed-capacity tile traversal:
+    ``run_fixed(capacity, alg, pair_capacity)`` is re-run with grown
+    capacities (overflow bit 0) or slot caps (bit 1) until nothing
+    overflows; ``cache`` (a previous result) gives the starting capacities.
+    A scene still overflowing after eight runs is too dense for the slot
+    caps (one tile pair with more than ``MAX_PAIR_CAP`` contacts) and takes
+    ``walk()``, the leaf-vs-tree walk, which handles any density."""
     if cache is not None and cache.cache1.dim() == 2 \
             and cache.cache1.shape[0] > 0:
         capacity = cache.cache1.shape[0]
-    else:
-        capacity = max(options.min_capacity, bvh.num_leaves)
-        capacity = 1 << math.ceil(math.log2(capacity))
     if cache is not None and cache.pair_capacity > 0:
         pair_capacity = cache.pair_capacity
-    else:
-        pair_capacity = _pair_capacity_for(-(-bvh.num_leaves // alg.tile))
     for _ in range(8):
-        total, contacts, overflow, num_checks = traverse_tiles_fixed(
-            bvh, capacity, alg=alg, pair_capacity=pair_capacity,
-            narrow=narrow)
+        total, contacts, overflow, num_checks = run_fixed(
+            capacity, alg, pair_capacity)
         ov = int(overflow)
         if ov == 0:
             return BVHTraversal(
                 num_contacts=int(total), cache1=contacts,
                 cache2=torch.zeros((0,), dtype=torch.int32, device=dev),
                 num_checks=int(num_checks), pair_capacity=pair_capacity,
-                tile_alg=alg)
+                tile_alg=alg, **levels)
         if ov & 1:
             capacity = _grow_capacity(capacity, options.capacity_growth)
             pair_capacity = _grow_capacity(
                 pair_capacity, options.capacity_growth, 8192)
         if ov & 2:
             alg = _grow_alg(alg)
-    raise NotImplementedError(
-        "the scene is too dense for the tile engine's slot caps; the LVT "
-        "walk fallback is not ported (ROADMAP A11)")
+    return walk()
+
+
+def _pow2_capacity(need: int, options: BVHOptions) -> int:
+    return 1 << math.ceil(math.log2(max(options.min_capacity, need)))
+
+
+def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
+                   narrow=None, cache: Optional[BVHTraversal] = None,
+                   options: BVHOptions = DEFAULT_OPTIONS) -> BVHTraversal:
+    """Tile self-contact with overflow-driven growth (:func:`_grow_tiles`
+    around :func:`traverse_tiles_fixed`), ending in
+    ``traverse(bvh, LVTTraversal())`` for a scene past the slot caps'
+    ceilings."""
+    from .api import traverse
+    alg = _merge_cached_alg(alg or TileTraversal(), cache)
+    if bvh.tree.real_nodes <= 1:
+        z = torch.zeros((0,), dtype=torch.int32, device=bvh.device)
+        return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z)
+    return _grow_tiles(
+        lambda c, a, pc: traverse_tiles_fixed(bvh, c, alg=a,
+                                              pair_capacity=pc,
+                                              narrow=narrow),
+        lambda: traverse(bvh, LVTTraversal(), narrow=narrow,
+                         options=options),
+        alg, _pow2_capacity(bvh.num_leaves, options),
+        _pair_capacity_for(-(-bvh.num_leaves // alg.tile)), cache, options,
+        bvh.device)
+
+
+def traverse_tiles_pair(bvh1: BVH, bvh2: BVH, *,
+                        alg: Optional[TileTraversal] = None, narrow=None,
+                        cache: Optional[BVHTraversal] = None,
+                        options: BVHOptions = DEFAULT_OPTIONS
+                        ) -> BVHTraversal:
+    """Tile traversal of two BVHs with overflow-driven growth
+    (:func:`_grow_tiles` around :func:`traverse_tiles_pair_fixed`), from a
+    capacity of twice the larger leaf count, ending in
+    ``traverse(bvh1, bvh2, LVTTraversal())``."""
+    from .api import traverse
+    alg = _merge_cached_alg(alg or TileTraversal(), cache)
+    T = -(-bvh1.num_leaves // alg.tile) + -(-bvh2.num_leaves // alg.tile)
+    return _grow_tiles(
+        lambda c, a, pc: traverse_tiles_pair_fixed(bvh1, bvh2, c, alg=a,
+                                                   pair_capacity=pc,
+                                                   narrow=narrow),
+        lambda: traverse(bvh1, bvh2, LVTTraversal(), narrow=narrow,
+                         options=options),
+        alg, _pow2_capacity(2 * max(bvh1.num_leaves, bvh2.num_leaves),
+                            options),
+        _pair_capacity_for(T // 2), cache, options, bvh1.device,
+        start_level2=1)

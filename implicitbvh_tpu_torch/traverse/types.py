@@ -16,15 +16,23 @@ class TraversalAlgorithm:
 
 @dataclasses.dataclass(frozen=True)
 class BFSTraversal(TraversalAlgorithm):
-    """Simultaneous breadth-first traversal.  The walk itself is not ported
-    (ROADMAP A11): entry points given one raise ``NotImplementedError``."""
+    """Simultaneous breadth-first traversal.  Not ported (ROADMAP A11):
+    entry points given one raise ``NotImplementedError``."""
+
+
+@dataclasses.dataclass(frozen=True)
+class DFSTraversal(TraversalAlgorithm):
+    """Depth-first traversal of the pair tree (the JAX package's lives in
+    ``traverse/dfs.py``).  Not ported (ROADMAP A11): entry points given one
+    raise ``NotImplementedError``."""
 
 
 @dataclasses.dataclass(frozen=True)
 class LVTTraversal(TraversalAlgorithm):
-    """Leaf-vs-tree traversal, the JAX package's default on the CPU.  The
-    walk itself is not ported (ROADMAP A11): entry points given one raise
-    ``NotImplementedError``."""
+    """Leaf-vs-tree traversal: the stackless lockstep walk of
+    ``traverse/walk.py`` over all leaves (or rays), with the count -> scan
+    -> write output scheme.  The default for CPU tensors and for BVHs of
+    mixed leaf kinds, and where the tile engine's growth ends."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,9 @@
 
 Counterpart of ``implicitbvh_tpu/tree.py:38-155``: the whole tree shape
 (levels, virtual node counts, per-level offsets, skips) is plain Python
-integer math; only ``compute_skips`` makes a tensor.
+integer math; ``compute_skips`` makes a tensor, and ``isvirtual_lanes`` and
+``memory_index_lanes`` answer the same questions for tensors of implicit
+indices (the JAX package's ``*_traced`` helpers).
 
 Nodes are labelled 1-based in BFS order over a perfect binary tree; level 1
 is the root and level ``levels`` the leaf level.  Leaves beyond
@@ -18,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .utils import ilog2_static, resolve_device
+from .utils import floor_ilog2, ilog2_static, resolve_device
 
 
 def _popcount(x: int) -> int:
@@ -94,3 +96,25 @@ def compute_skips(tree: ImplicitTree, dtype=torch.int32, device=None):
     """Tensor of per-level skips."""
     return torch.as_tensor(tree.skips_np(np.int64), dtype=dtype,
                            device=resolve_device(device))
+
+
+def isvirtual_lanes(tree: ImplicitTree, implicit_index: torch.Tensor,
+                    level=None) -> torch.Tensor:
+    """``isvirtual`` of every entry of an integer tensor of implicit
+    indices (``level``: their 1-based levels, if already known)."""
+    if level is None:
+        level = floor_ilog2(implicit_index) + 1
+    level_first = torch.ones_like(implicit_index) << (level - 1)
+    nreal = level_first - (torch.full_like(implicit_index,
+                                           tree.virtual_leaves)
+                           >> (tree.levels - level))
+    return implicit_index - level_first + 1 > nreal
+
+
+def memory_index_lanes(tree: ImplicitTree, implicit_index: torch.Tensor,
+                       skips: torch.Tensor, level=None) -> torch.Tensor:
+    """1-based memory index of every entry of a tensor of real implicit
+    indices; ``skips`` is the tensor of :func:`compute_skips`."""
+    if level is None:
+        level = floor_ilog2(implicit_index) + 1
+    return implicit_index - skips[(level - 1).long()].to(implicit_index.dtype)

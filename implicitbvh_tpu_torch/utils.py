@@ -1,7 +1,9 @@
 """Static integer helpers and the port's device rules.
 
-Counterpart of ``implicitbvh_tpu/utils.py`` (the static half: tree shapes are
-plain Python integers) plus the device policy every entry point follows:
+Counterpart of ``implicitbvh_tpu/utils.py``: the static half (tree shapes
+are plain Python integers), the per-lane bit helpers of the tree walk
+(``floor_ilog2``, ``count_trailing_zeros``, ``trailing_ones`` on integer
+tensors), and the device policy every entry point follows:
 
 - numpy arrays and Python values go to ``device`` if the caller names one,
   else to ``"cuda"``;
@@ -50,3 +52,22 @@ def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
     if dtype is None and isinstance(x, (float, list, tuple)):
         dtype = torch.float32
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def floor_ilog2(v: torch.Tensor) -> torch.Tensor:
+    """``floor(log2(v))`` of a positive int32/int64 tensor, in its dtype:
+    the exponent of the value as a float64, which holds every integer below
+    2^53 exactly."""
+    return (torch.frexp(v.to(torch.float64)).exponent - 1).to(v.dtype)
+
+
+def count_trailing_zeros(v: torch.Tensor) -> torch.Tensor:
+    """Trailing zero bits of a positive integer tensor: the position of its
+    lowest set bit."""
+    return floor_ilog2((v & -v).clamp(min=1))
+
+
+def trailing_ones(v: torch.Tensor) -> torch.Tensor:
+    """Trailing one bits of ``v``: the right-child edges a stackless walk
+    climbs from node ``v``."""
+    return count_trailing_zeros(v + 1)

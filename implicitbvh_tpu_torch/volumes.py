@@ -2,9 +2,10 @@
 
 Counterpart of ``implicitbvh_tpu/volumes.py``.  The public layout is the
 JAX package's: each coordinate is its own ``(N,)`` tensor (a 3-tuple), and
-constructors also accept ``(N, 3)`` arrays.  Ported so far: the two volume
-types, ``center_coords``, ``bbox_of_bsphere``, ``bsphere_from_triangles``
-and the ray predicate ``isintersection``.
+constructors also accept ``(N, 3)`` arrays.  The two volume types, their
+constructors from triangles, the merge monoid of the tree build, and the
+predicates ``iscontact`` (volume against volume) and ``isintersection``
+(ray against volume).
 """
 
 from __future__ import annotations
@@ -46,9 +47,13 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
-def dist3(a: Coords, b: Coords):
+def dist3sq(a: Coords, b: Coords):
     d0, d1, d2 = a[0] - b[0], a[1] - b[1], a[2] - b[2]
-    return sqrt_rn(d0 * d0 + d1 * d1 + d2 * d2)
+    return d0 * d0 + d1 * d1 + d2 * d2
+
+
+def dist3(a: Coords, b: Coords):
+    return sqrt_rn(dist3sq(a, b))
 
 
 def _map3(f, *cs):
@@ -127,6 +132,92 @@ def bbox_of_bsphere(a: BSphere) -> BBox:
     return BBox(tuple(c - a.r for c in a.xs), tuple(c + a.r for c in a.xs))
 
 
+def _select3(b_in_a, a_in_b, xa: Coords, xb: Coords, other: Coords) -> Coords:
+    """``xa`` where sphere b lies in a, else ``xb`` where a lies in b, else
+    ``other``, per coordinate."""
+    return tuple(torch.where(b_in_a, xa[k], torch.where(a_in_b, xb[k],
+                                                        other[k]))
+                 for k in range(3))
+
+
+def merge_bspheres(a: BSphere, b: BSphere) -> BSphere:
+    """Enclosure-aware sphere + sphere merge: the enclosing sphere when one
+    holds the other, else the smallest sphere around both
+    (``implicitbvh_tpu/volumes.py:237-251``, same operation order).  Not
+    associative."""
+    length = dist3(a.xs, b.xs)
+    a_in_b = length + a.r <= b.r
+    b_in_a = length + b.r <= a.r
+    len_safe = torch.where(length == 0.0, torch.ones_like(length), length)
+    frac = 0.5 * ((b.r - a.r) / len_safe + 1.0)
+    cen = tuple(a.xs[k] + frac * (b.xs[k] - a.xs[k]) for k in range(3))
+    rad = 0.5 * (length + a.r + b.r)
+    rad = torch.where(b_in_a, a.r, torch.where(a_in_b, b.r, rad))
+    return BSphere(_select3(b_in_a, a_in_b, a.xs, b.xs, cen), rad)
+
+
+def merge_bboxes(a: BBox, b: BBox) -> BBox:
+    return BBox(_map3(torch.minimum, a.los, b.los),
+                _map3(torch.maximum, a.ups, b.ups))
+
+
+def merge(a: Volume, b: Volume) -> Volume:
+    """Merge two bounding volumes of the same kind (the tree build's
+    monoid)."""
+    if isinstance(a, BSphere) and isinstance(b, BSphere):
+        return merge_bspheres(a, b)
+    if isinstance(a, BBox) and isinstance(b, BBox):
+        return merge_bboxes(a, b)
+    raise TypeError(f"cannot merge {type(a)} with {type(b)}")
+
+
+def bbox_of_two_bspheres(a: BSphere, b: BSphere) -> BBox:
+    """Enclosure-aware sphere + sphere -> box: the enclosing sphere's box
+    when one sphere holds the other, else the union of both boxes."""
+    length = dist3(a.xs, b.xs)
+    a_in_b = length + a.r <= b.r
+    b_in_a = length + b.r <= a.r
+    boxa, boxb = bbox_of_bsphere(a), bbox_of_bsphere(b)
+    lo = _map3(torch.minimum, boxa.los, boxb.los)
+    up = _map3(torch.maximum, boxa.ups, boxb.ups)
+    return BBox(_select3(b_in_a, a_in_b, boxa.los, boxb.los, lo),
+                _select3(b_in_a, a_in_b, boxa.ups, boxb.ups, up))
+
+
+def convert_volume(kind, v: Volume) -> Volume:
+    """Convert a volume to ``kind`` (leaf -> node type conversion)."""
+    if isinstance(v, kind):
+        return v
+    if kind is BBox and isinstance(v, BSphere):
+        return bbox_of_bsphere(v)
+    raise TypeError(f"cannot convert {type(v)} to {kind}")
+
+
+def merge_into(kind, a: Volume, b: Volume) -> Volume:
+    """Merge two leaf volumes into a node volume of type ``kind``."""
+    if kind is BBox and isinstance(a, BSphere) and isinstance(b, BSphere):
+        return bbox_of_two_bspheres(a, b)
+    return merge(convert_volume(kind, a), convert_volume(kind, b))
+
+
+def iscontact(a: Volume, b: Volume):
+    """Touch/overlap test of two broadcastable volume batches; returns a
+    bool tensor.  Spheres: ``dist3sq <= (ra + rb)^2``; boxes: interval
+    overlap on every axis; a sphere against a box goes through the
+    sphere's box.  These are the formulas of the ``sphere`` and ``box``
+    masks of ``ops/tile_contact.py``."""
+    if isinstance(a, BSphere) and isinstance(b, BSphere):
+        rr = a.r + b.r
+        return dist3sq(a.xs, b.xs) <= rr * rr
+    if isinstance(a, BBox) and isinstance(b, BBox):
+        out = (a.ups[0] >= b.los[0]) & (a.los[0] <= b.ups[0])
+        out = out & (a.ups[1] >= b.los[1]) & (a.los[1] <= b.ups[1])
+        return out & (a.ups[2] >= b.los[2]) & (a.los[2] <= b.ups[2])
+    if isinstance(a, BSphere):
+        return iscontact(bbox_of_bsphere(a), b)
+    return iscontact(a, bbox_of_bsphere(b))
+
+
 def _min2(x, y):
     """The reference's select minimum ``where(x < y, x, y)``: a NaN in
     either operand gives ``y`` (``torch.minimum`` would give NaN)."""
@@ -185,6 +276,26 @@ def isintersection(v: Volume, p, d):
     if isinstance(v, BBox):
         return _ray_box_test(p, [_reciprocal(c) for c in d], v.los, v.ups)
     return _ray_sphere_test(p, d, v.xs, v.r)
+
+
+def bbox_from_triangles(p1, p2, p3, device=None) -> BBox:
+    """AABBs of triangles given three ``(N, 3)`` vertex arrays or coordinate
+    tuples."""
+    a = as_coords(p1, device)
+    b = as_coords(p2, a[0].device)
+    c = as_coords(p3, a[0].device)
+    lo = _map3(lambda x, y, z: torch.minimum(torch.minimum(x, y), z), a, b, c)
+    up = _map3(lambda x, y, z: torch.maximum(torch.maximum(x, y), z), a, b, c)
+    return BBox(lo, up)
+
+
+def from_triangles(kind, p1, p2, p3, device=None) -> Volume:
+    """``kind`` (the BSphere or BBox class) of triangles."""
+    if kind is BSphere:
+        return bsphere_from_triangles(p1, p2, p3, device)
+    if kind is BBox:
+        return bbox_from_triangles(p1, p2, p3, device)
+    raise TypeError(f"unknown volume kind {kind}")
 
 
 def bsphere_from_triangles(p1, p2, p3, device=None) -> BSphere:

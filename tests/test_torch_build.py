@@ -164,12 +164,166 @@ def test_interop_round_trip(scene):
     assert got.tree == want.tree and got.built_level == want.built_level
 
 
+@pytest.mark.parametrize("n, built_level", [(1024, 1), (700, 1), (3000, 1),
+                                            (700, 4), (1, 1), (2, 1),
+                                            (3, 1)])
+def test_build_bsphere_nodes_exact(n, built_level):
+    """BSphere nodes bit-equal to the JAX package's: full and ragged
+    levels (a copied last child), a ``built_level`` above 1 (zero-filled
+    levels), and the smallest trees."""
+    tri = triangles(n, 4)
+    jbvh = jb.build(jax_spheres(tri), jb.BSphere, built_level=built_level)
+    tbvh = tb.build(torch_spheres(tri), tb.BSphere, built_level=built_level)
+    assert tbvh.node_kind is tb.BSphere and tbvh.leaf_kind is tb.BSphere
+    assert tbvh.nodes.r.shape[0] == tbvh.tree.num_nodes
+    assert all(eq(a, b) for a, b in zip(jbvh.nodes.xs, tbvh.nodes.xs))
+    assert eq(jbvh.nodes.r, tbvh.nodes.r)
+    if built_level > 1:
+        lo, _ = tbvh.tree.level_indices(built_level)
+        assert not tbvh.nodes.r[:lo - 1].any() and tbvh.nodes.r[lo - 1:].all()
+
+
+def test_interop_carries_bsphere_nodes():
+    tri = triangles(700, 4)
+    jbvh = jb.build(jax_spheres(tri), jb.BSphere)
+    d = {"leaf_kind": "sphere", "index": np.asarray(jbvh.leaves.index),
+         "morton": np.asarray(jbvh.leaves.morton),
+         "skips": np.asarray(jbvh.skips), "built_level": jbvh.built_level,
+         "num_leaves": jbvh.num_leaves,
+         "leaf_r": np.asarray(jbvh.leaves.volume.r),
+         "node_r": np.asarray(jbvh.nodes.r)}
+    for k in range(3):
+        d[f"leaf_x{k}"] = np.asarray(jbvh.leaves.volume.xs[k])
+        d[f"node_x{k}"] = np.asarray(jbvh.nodes.xs[k])
+    got = interop.bvh_from_numpy(d, CPU)
+    want = tb.build(torch_spheres(tri), tb.BSphere)
+    assert got.node_kind is tb.BSphere
+    for a, b in zip([*got.nodes.xs, got.nodes.r],
+                    [*want.nodes.xs, want.nodes.r]):
+        assert torch.equal(a, b)
+
+
+def sphere_pairs(seed):
+    """Two sphere batches that take every branch of the merges: far apart,
+    overlapping, one inside the other either way, and identical."""
+    rng = np.random.default_rng(seed)
+    n = 4000
+    xa = (rng.random((n, 3)) * 4).astype(np.float32)
+    xb = (rng.random((n, 3)) * 4).astype(np.float32)
+    ra = (rng.random(n) * 1.5 + 0.01).astype(np.float32)
+    rb = (rng.random(n) * 1.5 + 0.01).astype(np.float32)
+    ra[:500] *= 4
+    rb[500:1000] *= 4
+    xb[1000:1100], rb[1000:1100] = xa[1000:1100], ra[1000:1100]
+    return (xa, ra), (xb, rb)
+
+
+def both_volumes(x, r, box):
+    if box:
+        return (jb.BBox(jnp.asarray(x - r[:, None]), jnp.asarray(x + r[:, None])),
+                tb.BBox(torch.from_numpy(x - r[:, None]),
+                        torch.from_numpy(x + r[:, None])))
+    return (jb.BSphere(jnp.asarray(x), jnp.asarray(r)),
+            tb.BSphere(torch.from_numpy(x), torch.from_numpy(r)))
+
+
+def volumes_eq(jv, tv):
+    if isinstance(tv, tb.BSphere):
+        return isinstance(jv, jb.BSphere) and eq(jv.r, tv.r) and \
+            all(eq(a, b) for a, b in zip(jv.xs, tv.xs))
+    return isinstance(jv, jb.BBox) and \
+        all(eq(a, b) for a, b in zip(jv.los + jv.ups, tv.los + tv.ups))
+
+
+def test_merges_and_conversions_exact():
+    from implicitbvh_tpu import volumes as jv
+    from implicitbvh_tpu_torch import volumes as tv
+    (xa, ra), (xb, rb) = sphere_pairs(0)
+    ja, ta = both_volumes(xa, ra, False)
+    jb_, tb_ = both_volumes(xb, rb, False)
+    jba, tba = both_volumes(xa, ra, True)
+    jbb, tbb = both_volumes(xb, rb, True)
+    assert volumes_eq(jv.merge(ja, jb_), tv.merge(ta, tb_))
+    assert volumes_eq(jv.merge(jba, jbb), tv.merge(tba, tbb))
+    assert volumes_eq(jv.bbox_of_two_bspheres(ja, jb_),
+                      tv.bbox_of_two_bspheres(ta, tb_))
+    for kind_j, kind_t in ((jb.BBox, tb.BBox), (jb.BSphere, tb.BSphere)):
+        assert volumes_eq(jv.merge_into(kind_j, ja, jb_),
+                          tv.merge_into(kind_t, ta, tb_))
+        assert volumes_eq(jv.convert_volume(kind_j, ja),
+                          tv.convert_volume(kind_t, ta))
+    assert volumes_eq(jv.merge_into(jb.BBox, jba, jbb),
+                      tv.merge_into(tb.BBox, tba, tbb))
+    assert eq(jv.dist3sq(ja.xs, jb_.xs), tv.dist3sq(ta.xs, tb_.xs))
+    with pytest.raises(TypeError):
+        tv.merge(ta, tbb)
+    with pytest.raises(TypeError):
+        tv.convert_volume(tb.BSphere, tba)
+
+
+def test_iscontact_exact():
+    (xa, ra), (xb, rb) = sphere_pairs(1)
+    ra, rb = ra * 0.3, rb * 0.3
+    # touching spheres and boxes: the comparison is <=, >=
+    xb[:200] = xa[:200]
+    xb[:200, 0] += ra[:200] + rb[:200]
+    for box_a in (False, True):
+        for box_b in (False, True):
+            ja, ta = both_volumes(xa, ra, box_a)
+            jb_, tb_ = both_volumes(xb, rb, box_b)
+            want = jb.iscontact(ja, jb_)
+            got = tb.iscontact(ta, tb_)
+            assert eq(want, got) and 0 < int(got.sum()) < got.numel()
+
+
+def test_bbox_from_triangles_exact(scene):
+    tri, _, _ = scene
+    jv = jb.bbox_from_triangles(*[jnp.asarray(p) for p in tri])
+    tv = tb.bbox_from_triangles(*[torch.from_numpy(p) for p in tri])
+    assert volumes_eq(jv, tv)
+    from implicitbvh_tpu_torch.volumes import from_triangles
+    assert volumes_eq(jv, from_triangles(tb.BBox, *tri, device="cpu"))
+    assert from_triangles(tb.BSphere, *tri, device="cpu").r.shape == (len(tri[0]),)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every ``.py`` of the port and ``chip_smoke.py`` import ``torch``,
+    never ``jax`` and nothing of ``implicitbvh_tpu``."""
+    import ast
+    import pathlib
+    root = pathlib.Path(tb.__file__).resolve().parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    assert len(files) > 15
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "implicitbvh_tpu"), \
+                    f"{path.name} imports {name}"
+
+
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
+    """What is left unported raises and names its ROADMAP item."""
+    from implicitbvh_tpu_torch.morton import MortonAlgorithm
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         tb.BVHOptions(index_bits=64)
     ts = torch_spheres(triangles(16, 0))
-    with pytest.raises(NotImplementedError):
-        tb.build(ts, tb.BSphere)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        tb.build(ts, options=tb.BVHOptions(morton=MortonAlgorithm()))
+    bvh = tb.build(ts)
+    for alg in (tb.BFSTraversal(), tb.DFSTraversal()):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            tb.traverse(bvh, alg)
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            tb.traverse(bvh, bvh, alg)
+    with pytest.raises(TypeError):       # box leaves have no sphere nodes
+        tb.build(tb.BBox(ts.xs, ts.xs), tb.BSphere)
 
 
 def test_device_rules():

@@ -214,21 +214,27 @@ def test_readme_demo_default_options_takes_the_fallback(monkeypatch):
 
 
 def test_growth_end_raises_naming_a11(monkeypatch):
-    """Eight runs that all overflow end in the LVT walk, which is not
-    ported: the only raise left on the tile routes."""
+    """Eight runs that all overflow used to raise ``NotImplementedError``
+    naming ROADMAP A11; they now end in the leaf-vs-tree walk, which
+    returns the brute force's set with no tile parameters."""
     from implicitbvh_tpu_torch.traverse import tiles as ttiles
     xs, rs = spheres(96, 5, 0.8)
     bvh = tb.build(tb.BSphere(torch.from_numpy(xs), torch.from_numpy(rs)))
     fixed = ttiles.traverse_tiles_fixed
+    calls = []
 
     def always_over(*args, **kw):
+        calls.append(kw["alg"])
         total, contacts, _, num_checks = fixed(*args, **kw)
         return total, contacts, torch.tensor(2, dtype=torch.int32), \
             num_checks
 
     monkeypatch.setattr(ttiles, "traverse_tiles_fixed", always_over)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttiles.traverse_tiles(bvh, alg=tb.TileTraversal(tile=32))
+    t = ttiles.traverse_tiles(bvh, alg=tb.TileTraversal(tile=32))
+    assert len(calls) == 8 and calls[-1].pair_cap == ttiles.MAX_PAIR_CAP
+    assert t.tile_alg is None and t.cache2.shape[0] == 96
+    assert set(t.contacts_list()) == brute_force(xs, rs)
+    assert len(t.contacts_list()) == t.num_contacts
 
 
 @pytest.mark.gpu
