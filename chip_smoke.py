@@ -20,7 +20,8 @@ against its plain version only.
    card -- the inputs its stage gets on a small scene (tile 32) on both
    routes -- and requires exact equality (the predicates are comparisons of
    identically rounded float32 values, the outputs are integers; slot
-   lanes past a pair's count are undefined and not compared);
+   lanes past a pair's count and B2's word rows of dead pairs are undefined
+   and not compared);
 2. drives the two-phase route at the bench scene: 2^20 triangles ->
    ``bsphere_from_triangles`` -> ``build`` -> ``traverse_tiles_fixed``
    (capacity 131072, ``TileTraversal(row_cap=4, pair_cap=32)``) with every
@@ -100,14 +101,20 @@ against its plain version only.
     by stage, each with its host enqueue time and a profile (device time
     by kernel, device busy share), and each kernel and variant at its
     full-size inputs beside its plain version and, for B5,
-    ``torch.masked_select``.
+    ``torch.masked_select``, also beside the port's whole compaction
+    (``tile_compact`` + ``finish_compact`` in one call); for B2, B4 and B6
+    also the kernel's own device time from the profiler, and for B2 and B4
+    the time at the bench scene's inputs with ``nsteps`` set to 0 (the cost
+    of the grid with no live step).
 
 Each row's bound is printed with both of its terms (bytes and operations)
-and, for B2 with ``moments``, also with only the live rows of the word plane
-counted as written.  It prints one ``{"kernels": [...]}`` line, the card's
-name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
-exits non-zero; so does a machine without a CUDA device.
+and with the instruction floor of its operations (twice the operations
+term: the predicates are explicitly rounded, so no operation fuses into an
+FMA); B2 with ``moments`` counts as written only the word rows of live
+pairs, the only rows it defines.  It prints one ``{"kernels": [...]}``
+line, the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Any failed check raises and exits non-zero; so does a machine
+without a CUDA device.
 """
 
 import contextlib
@@ -202,24 +209,21 @@ def profile_step(torch, run_step, step_ms, route, card, steps=3):
             run_step()
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     kern = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA
-            and dev_us(e) > 0]
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
     if not kern:
         log(f"profile, {route}: the profiler recorded no device time "
             "(not measured)")
         return
-    busy = sum(dev_us(e) for e in kern) / steps / 1e3
+    busy = sum(e.self_device_time_total for e in kern) / steps / 1e3
     log(f"profile, {route}: device busy {busy:.4f} ms per step, "
         f"{100 * busy / step_ms:.1f}% of the {step_ms:.4f} ms step, "
         f"{sum(e.count for e in kern) // steps} device ops per step [{card}]")
-    for e in sorted(kern, key=dev_us, reverse=True)[:16]:
-        log(f"  {dev_us(e) / steps / 1e3:9.4f} ms  x{e.count // steps:<4d} "
-            f"{e.key[:100]}")
+    for e in sorted(kern, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:16]:
+        ms = e.self_device_time_total / steps / 1e3
+        log(f"  {ms:9.4f} ms  x{e.count // steps:<4d} {e.key[:100]}")
 
 
 def main() -> int:
@@ -328,9 +332,16 @@ def main() -> int:
                 dict(mask_kind="sphere" if sphere else "box",
                      ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=True))
 
-    def outputs_of(name, got, want, kw):
+    def outputs_of(name, got, want, args, kw):
         """The tensors of a kernel's and its plain version's results that
         must be equal."""
+        if name == "tile_run_counts" and kw.get("moments"):
+            # the card writes only the word rows of live pairs
+            live = ops.run_live_pairs(args[1], args[2], args[3],
+                                      args[0].shape[0], args[-1].shape[1],
+                                      R=kw["R"], NB=kw["NB"])
+            return ([got[0], got[1], got[2][live]],
+                    [want[0], want[1], want[2][live]])
         if name == "tile_group_emit":  # contacts compared as a sorted set
             def norm(result):
                 gi, gj, total, flags = result
@@ -373,7 +384,7 @@ def main() -> int:
         row = row_of(name, kw, pair)
         errs.setdefault(row, 0)
         got, want = outputs_of(name, wrapper(*args, **kw),
-                               plain(*args, **kw), kw)
+                               plain(*args, **kw), args, kw)
         torch.cuda.synchronize()
         for g, w in zip(got, want, strict=True):
             if g.shape != w.shape or not torch.equal(g, w):
@@ -1179,13 +1190,10 @@ def main() -> int:
         return int((t * live).sum())
 
     def bound(name, args, kw):
-        """(bytes_ms, operations_ms, live_bytes_ms): the bytes over the
-        memory rate (inputs read once, outputs written once) and the float
-        operations this run's data needs over the fp32 rate; the bound is
-        the larger.  ``live_bytes_ms`` is, for B2 with moments, the bytes
-        term with only the word plane's rows of live (step, w, t) slots
-        counted as written, else None."""
-        ops_n, live_b = 0, None
+        """(bytes_ms, operations_ms): the bytes over the memory rate (inputs
+        read once, outputs written once) and the float operations this
+        run's data needs over the fp32 rate; the bound is the larger."""
+        ops_n = 0
         if name == "subtile_band_bits":
             sub, tl, si, sj, nsp = args
             out_b = si.shape[0] * 32 * 32 * 4
@@ -1201,7 +1209,8 @@ def main() -> int:
             b = nbytes(sub, tl, si, sj, nsp) + out_b
         elif name == "tile_run_counts":
             # the tests of the live steps' live bands (the path's
-            # num_checks); with moments the whole word plane is written
+            # num_checks); with moments the word rows of the live pairs,
+            # the only rows the function defines and the kernel writes
             a_idx, run_idx, bm, nsteps, *fields = args
             G = fields[0].shape[2]
             W = run_idx.shape[0] // a_idx.shape[0]
@@ -1210,19 +1219,12 @@ def main() -> int:
             tests = int((tiles._popcount(bm) * step_live).sum()) * \
                 (G // kw["NB"]) * G
             rows_out = run_idx.shape[0] * kw["R"]
+            rows_live = int(ops.run_live_pairs(
+                run_idx, bm, nsteps, a_idx.shape[0], fields[-1].shape[1],
+                R=kw["R"], NB=kw["NB"]).sum()) if kw.get("moments") else 0
             b = nbytes(a_idx, run_idx, bm, nsteps, *set(fields)) + \
-                2 * rows_out * 4 + \
-                (rows_out * 128 * 4 if kw.get("moments") else 0)
+                2 * rows_out * 4 + rows_live * 128 * 4
             ops_n = tests * FLOPS_PER_TEST[kw["mask_kind"]]
-            if kw.get("moments"):
-                t = torch.arange(kw["R"], device=dev)
-                per_word = 32 // kw["NB"]
-                bands = (bm[t // per_word].T >> (kw["NB"] * (t % per_word))) \
-                    & ((1 << kw["NB"]) - 1)                    # (slots, R)
-                tj = (run_idx & 0xFFFF)[:, None] * kw["R"] + t
-                rows_live = int(((bands != 0) & step_live[:, None]
-                                 & (tj < fields[-1].shape[1])).sum())
-                live_b = b - (rows_out - rows_live) * 128 * 4
         elif name == "tile_group_emit":
             a_idx, b_idx, nsteps, *fields = args
             G = fields[0].shape[2]
@@ -1277,8 +1279,30 @@ def main() -> int:
             counts = kernels[name][0](*args, **kw)[2]
             lanes = int(counts.clamp(max=kw["CAP_PAIR"]).sum())
             b = nbytes(*ins) + 4 * counts.numel() + 4 + 2 * 4 * lanes
-        return (b / HBM_BYTES_PER_S * 1e3, ops_n / FP32_OPS_PER_S * 1e3,
-                None if live_b is None else live_b / HBM_BYTES_PER_S * 1e3)
+        return b / HBM_BYTES_PER_S * 1e3, ops_n / FP32_OPS_PER_S * 1e3
+
+    def device_ms(fn, kernel, reps=7):
+        """The device time of CUDA kernel ``kernel`` (its name's start) per
+        call of ``fn``, from the profiler's ``key_averages()``: the
+        kernel's own time, without the wrapper's other work."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and kernel in e.key)
+        if not us:
+            raise RuntimeError(f"the profiler recorded no time of {kernel}")
+        return us / reps / 1e3
+
+    device_kernel = {"tile_run_counts": "run_counts_kernel",
+                     "tile_group_contacts": "slot_contacts_kernel",
+                     "tile_pair_contacts": "slot_contacts_kernel"}
 
     launches = dict(launches_fb)
     launches.update({n: launches_2p[n] for n in two_phase_kernels})
@@ -1312,7 +1336,7 @@ def main() -> int:
         row = row_of(name, kw, pair=k >= pair_rows)
         k_ms = time_ms(lambda: wrapper(*args, **kw))
         p_ms = time_ms(lambda: plain(*args, **kw), reps=3)
-        bytes_ms, ops_ms, live_ms = bound(name, args, kw)
+        bytes_ms, ops_ms = bound(name, args, kw)
         b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
             (ops_ms, "operations")
         lib_ms = None
@@ -1329,13 +1353,31 @@ def main() -> int:
                                    len(payloads), -1)):
                 raise AssertionError("tile_compact + finish_compact differ "
                                      "from torch.masked_select")
+            # like for like: the port's whole compaction in one call
+            both_ms = time_ms(lambda: ops.finish_compact(
+                *wrapper(*args, **kw)[:2], mask.shape[0]))
+            log(f"time: {row} like for like: tile_compact + finish_compact "
+                f"{both_ms:.4f} ms, torch.masked_select {lib_ms:.4f} ms "
+                f"[{card}]")
         log(f"time: {row} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
             f"launches {n_launches}, bound {b_ms:.6f} ms ({b_by}; bytes "
-            f"{bytes_ms:.6f}, operations {ops_ms:.6f}"
-            + ("" if live_ms is None else
-               f", bytes with only the live word rows {live_ms:.6f}")
-            + f") [{card}]")
+            f"{bytes_ms:.6f}, operations {ops_ms:.6f}; without FMA the "
+            f"instruction floor of the operations is {2 * ops_ms:.6f}) "
+            f"[{card}]")
+        if name in device_kernel:
+            d_ms = device_ms(lambda: wrapper(*args, **kw),
+                             device_kernel[name])
+            log(f"time: {row} {device_kernel[name]} on the device (profiler, "
+                f"mean of 7 calls) {d_ms:.4f} ms [{card}]")
+        if k < len(kernels) and name in ("tile_run_counts",
+                                         "tile_group_contacts"):
+            # the dead grid: the same inputs with no live step
+            dead = list(args)
+            i = 3 if name == "tile_run_counts" else 2
+            dead[i] = torch.zeros_like(args[i])
+            log(f"time: {row} with nsteps = 0 (the dead grid) "
+                f"{time_ms(lambda: wrapper(*dead, **kw)):.4f} ms [{card}]")
         rows.append({"name": row, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": n_launches,
                      "max_abs_err": errs[row], "ms": k_ms, "plain_ms": p_ms,

@@ -12,6 +12,11 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace ibvh {
 
 enum MaskKind : int { SPHERE = 0, BOX = 1, RAY_BOX = 2, RAY_SPHERE = 3 };
@@ -44,12 +49,9 @@ struct Mask<RAY_SPHERE> {
   static constexpr int FA = 6, AP = 7, FB = 4;
 };
 
-// Host-side copies of AP and FB (shared-memory sizes of the launchers).
+// Host-side copy of AP (shared-memory size of the emit kernel's launcher).
 inline int prepared_a_floats(int kind) {
   return kind == SPHERE ? 4 : kind == RAY_SPHERE ? 7 : 6;
-}
-inline int b_fields_of(int kind) {
-  return (kind == SPHERE || kind == RAY_SPHERE) ? 4 : 6;
 }
 
 // Sphere-sphere contact: dx*dx + dy*dy + dz*dz <= (ra + rb)^2, evaluated
@@ -166,16 +168,279 @@ __device__ __forceinline__ bool leaf_hit(const float* a_s, int G, int i,
   return pair_hit<KIND>(a, b);
 }
 
-// This thread's prepared a-row (registers) against leaf j of the b-tile
-// (shared memory, field-major with pitch G).
+// ---------------------------------------------------------------------------
+// Records of the count and slot kernels (B2 run_counts.cu, B4
+// group_contacts.cu).  A prepared a-row or b-leaf is one or two 16-byte
+// records, so that one broadcast 128-bit shared load (two for boxes and
+// rays) fetches it whole; every thread of a warp reads the same record.
+// Factors that depend on one side only are computed once per row or leaf
+// with the same rounded operation the predicate would apply per test:
+//   SPHERE      a, b = (x0, x1, x2, r)
+//   BOX         a, b = (lo0, lo1, lo2, up0 | up1, up2, 0, 0)
+//   RAY_BOX     a = (p0, p1, p2, 1/d0 | 1/d1, 1/d2, 0, 0); b = box
+//   RAY_SPHERE  a = (p0, p1, p2, d0 | d1, d2, 4 * (d.d), 0);
+//               b = (x0, x1, x2, r * r)
+// RA, RB: float4 records of an a-row and of a b-leaf.
 template <int KIND>
-__device__ __forceinline__ bool row_hit(const float* a, const float* b_s,
-                                        int G, int j) {
-  float b[Mask<KIND>::FB];
+struct Rec {
+  static constexpr int RA = KIND == SPHERE ? 1 : 2;
+  static constexpr int RB = (KIND == SPHERE || KIND == RAY_SPHERE) ? 1 : 2;
+};
+
+// Row i of a-tile ti into the record floats a[4 * RA].
+template <int KIND>
+__device__ __forceinline__ void load_a_rec(const float* __restrict__ fields,
+                                           int Ta, int G, int ti, int i,
+                                           float* a) {
 #pragma unroll
-  for (int f = 0; f < Mask<KIND>::FB; ++f) b[f] = b_s[f * G + j];
+  for (int f = Mask<KIND>::AP; f < 4 * Rec<KIND>::RA; ++f) a[f] = 0.f;
+  load_a_row<KIND>(fields, Ta, G, ti, i, a);
+  if constexpr (KIND == RAY_SPHERE) a[6] = __fmul_rn(4.0f, a[6]);
+}
+
+// Leaf j of b-tile tj into the record floats b[4 * RB].
+template <int KIND>
+__device__ __forceinline__ void load_b_rec(const float* __restrict__ fields,
+                                           int Tb, int G, int tj, int j,
+                                           float* b) {
+#pragma unroll
+  for (int f = Mask<KIND>::FB; f < 4 * Rec<KIND>::RB; ++f) b[f] = 0.f;
+  load_b_leaf<KIND>(fields, Tb, G, tj, j, b);
+  if constexpr (KIND == RAY_SPHERE) b[3] = __fmul_rn(b[3], b[3]);
+}
+
+template <int NR>
+__device__ __forceinline__ void store_rec(float4* s, int k, const float* v) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    s[k * NR + r] = make_float4(v[4 * r], v[4 * r + 1], v[4 * r + 2],
+                                v[4 * r + 3]);
+}
+
+template <int NR>
+__device__ __forceinline__ void load_rec(const float4* s, int k, float* v) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const float4 x = s[k * NR + r];
+    v[4 * r] = x.x;
+    v[4 * r + 1] = x.y;
+    v[4 * r + 2] = x.z;
+    v[4 * r + 3] = x.w;
+  }
+}
+
+// ray_sphere_hit on records: the same operations in the same order, with
+// 4 * (d.d) and r * r taken from the records.
+__device__ __forceinline__ bool ray_sphere_rec_hit(const float* a,
+                                                   const float* b) {
+  const float po0 = __fsub_rn(a[0], b[0]);
+  const float po1 = __fsub_rn(a[1], b[1]);
+  const float po2 = __fsub_rn(a[2], b[2]);
+  const float qb = __fmul_rn(
+      2.0f, __fadd_rn(__fadd_rn(__fmul_rn(po0, a[3]), __fmul_rn(po1, a[4])),
+                      __fmul_rn(po2, a[5])));
+  const float qc = __fsub_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(po0, po0), __fmul_rn(po1, po1)),
+                __fmul_rn(po2, po2)),
+      b[3]);
+  const float disc = __fsub_rn(__fmul_rn(qb, qb), __fmul_rn(a[6], qc));
+  return (disc >= 0.f) & ((qb <= 0.f) | (qc <= 0.f));
+}
+
+// One a-record against one b-record, both in registers.
+template <int KIND>
+__device__ __forceinline__ bool rec_hit(const float* a, const float* b) {
+  if constexpr (KIND == RAY_SPHERE) return ray_sphere_rec_hit(a, b);
   return pair_hit<KIND>(a, b);
 }
+
+// Columns (B2) or rows (B4) per thread: the largest of 4, 2, 1 that keeps
+// a team (G / k threads) a multiple of 32.
+inline int per_thread_of(int G) {
+  return G % 128 == 0 ? 4 : G % 64 == 0 ? 2 : 1;
+}
+
+// Zeroes p[begin, end) with the whole grid, 16 bytes a store where
+// aligned (p itself 16-byte aligned).
+__device__ __forceinline__ void grid_zero(int* p, long long begin,
+                                          long long end) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nthr = (long long)gridDim.x * blockDim.x;
+  const long long a = min(end, (begin + 3) & ~3LL);
+  const long long e4 = end >> 2;
+  for (long long i = begin + tid; i < a; i += nthr) p[i] = 0;
+  int4* q = reinterpret_cast<int4*>(p);
+  for (long long i = (a >> 2) + tid; i < e4; i += nthr)
+    q[i] = make_int4(0, 0, 0, 0);
+  for (long long i = max(a, e4 << 2) + tid; i < end; i += nthr) p[i] = 0;
+}
+
+// Block-wide exclusive prefix sum of K ints per thread, in (k, thread)
+// order: value k of thread t is element k * blockDim.x + t.  Returns the
+// total.  blockDim.x is a multiple of 32 and K * blockDim.x / 32 <= 32;
+// `sh` holds 32 ints.
+template <int K>
+__device__ __forceinline__ int block_exclusive_scan_k(const int (&v)[K],
+                                                      int (&off)[K],
+                                                      int* sh) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  int x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    x[k] = v[k];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x[k], o);
+      if (lane >= o) x[k] += y;
+    }
+    if (lane == 31) sh[k * nw + warp] = x[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < K * nw ? sh[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < K * nw) sh[lane] = w;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = k * nw + warp;
+    off[k] = (q > 0 ? sh[q - 1] : 0) + x[k] - v[k];
+  }
+  return sh[K * nw - 1];
+}
+
+// Exclusive prefix sum of K ints per lane over one warp, in (k, lane)
+// order; returns the total (in every lane).
+template <int K>
+__device__ __forceinline__ int warp_exclusive_scan_k(const int (&v)[K],
+                                                     int (&off)[K]) {
+  const int lane = threadIdx.x & 31;
+  int run = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int x = v[k];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    off[k] = run + x - v[k];
+    run += __shfl_sync(0xffffffffu, x, 31);
+  }
+  return run;
+}
+
+// A team of the count and slot kernels: the threads that take one tile
+// pair together, G / k of them.  A team of one warp (tiles of 32, 64 and
+// 128) is a worker of its own, several to a block, and syncs as a warp; a
+// larger team is the whole block.  Teams take groups of up to 32 items in
+// turn from a counter in device memory, zeroed by the caller, so that the
+// grid balances itself as a grid of one block per item would; a group is
+// smaller where the items are few, so that every team gets several.
+constexpr int WARP_TEAMS = 4;  // teams of one warp in a block
+
+template <bool WARP>
+struct Team {
+  // items per group, for n items over the grid's teams
+  __device__ __forceinline__ int group_size(long long n) const {
+    const long long teams =
+        (long long)gridDim.x * (WARP ? blockDim.x >> 5 : 1);
+    return (int)max(1LL, min(32LL, n / (4 * teams)));
+  }
+  __device__ __forceinline__ int rank() const {  // the thread in the team
+    return WARP ? threadIdx.x & 31 : threadIdx.x;
+  }
+  __device__ __forceinline__ int index() const {  // the team in its block
+    return WARP ? threadIdx.x >> 5 : 0;
+  }
+  __device__ __forceinline__ void sync() const {
+    if constexpr (WARP)
+      __syncwarp();
+    else
+      __syncthreads();
+  }
+  // the team's next group of items; `sh` is one shared int of the block
+  __device__ __forceinline__ int grab(int* work, int* sh) const {
+    if constexpr (WARP) {
+      int g = 0;
+      if ((threadIdx.x & 31) == 0) g = atomicAdd(work, 1);
+      return __shfl_sync(0xffffffffu, g, 0);
+    } else {
+      __syncthreads();  // every thread has read the previous group
+      if (threadIdx.x == 0) *sh = atomicAdd(work, 1);
+      __syncthreads();
+      return *sh;
+    }
+  }
+};
+
+// Blocks of a persistent grid: as many as fit on the device at once, at
+// most `cap`.  Cached per (kernel, device, block, shared memory).  A kernel
+// that asks for more dynamic shared memory than its limit (48 KB in all by
+// default; the slot kernels' records at tiles above 768, 1024 for
+// ray_sphere) is first opted in to the device's per-block maximum, so that
+// every tile size launches.
+template <typename Kern>
+inline int persistent_blocks(Kern kern, int threads, size_t shmem,
+                             long long cap) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, size_t>, int> cache;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key =
+      std::make_tuple(reinterpret_cast<const void*>(kern), dev, threads, shmem);
+  int full;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = cache.find(key);
+    if (it == cache.end()) {
+      int sms = 0, per = 0;
+      cudaFuncAttributes attr{};
+      cudaFuncGetAttributes(&attr, kern);
+      if (shmem > (size_t)attr.maxDynamicSharedSizeBytes) {
+        // opt in to the device's limit less the kernel's static shared
+        // memory: the most dynamic shared memory a block may take
+        int most = 0;
+        cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most - (int)attr.sharedSizeBytes);
+      }
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, threads,
+                                                    shmem);
+      it = cache.emplace(key, std::max(1, sms) * std::max(1, per)).first;
+    }
+    full = it->second;
+  }
+  return (int)std::max(1LL, std::min((long long)full, cap));
+}
+
+// Calls FN<KIND, k, WARP>(...) with k = per_thread_of(G) and WARP set when
+// a team of G / k threads is one warp.
+#define IBVH_DISPATCH_TEAM(G, FN, ...)                  \
+  {                                                     \
+    const int k_ = ibvh::per_thread_of(G);              \
+    const bool warp_ = (G) / k_ == 32;                  \
+    if (k_ == 4 && warp_)                               \
+      FN<KIND, 4, true>(__VA_ARGS__);                   \
+    else if (k_ == 4)                                   \
+      FN<KIND, 4, false>(__VA_ARGS__);                  \
+    else if (k_ == 2 && warp_)                          \
+      FN<KIND, 2, true>(__VA_ARGS__);                   \
+    else if (k_ == 2)                                   \
+      FN<KIND, 2, false>(__VA_ARGS__);                  \
+    else if (warp_)                                     \
+      FN<KIND, 1, true>(__VA_ARGS__);                   \
+    else                                                \
+      FN<KIND, 1, false>(__VA_ARGS__);                  \
+  }
 
 // Runs `body` with the compile-time constant KIND set from `kind`; an
 // unknown kind returns cudaErrorInvalidValue from the enclosing function.
@@ -204,34 +469,6 @@ __device__ __forceinline__ bool row_hit(const float* a, const float* b_s,
     default:                                           \
       return (int)cudaErrorInvalidValue;               \
   }
-
-// Block-wide sum and max of one int per thread; the result is valid in
-// thread 0.  blockDim.x is a multiple of 32; `sh` holds 64 ints.
-__device__ __forceinline__ void block_sum_max(int v, int* sum, int* mx,
-                                              int* sh) {
-  int s = v, m = v;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, off);
-    m = max(m, __shfl_down_sync(0xffffffffu, m, off));
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // the previous call's readers are done with `sh`
-  if (lane == 0) {
-    sh[warp] = s;
-    sh[32 + warp] = m;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int ts = 0, tm = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-      ts += sh[w];
-      tm = max(tm, sh[32 + w]);
-    }
-    *sum = ts;
-    *mx = tm;
-  }
-}
 
 // Block-wide exclusive prefix sum of one int per thread, in thread order.
 // blockDim.x is a multiple of 32; `sh` holds 32 ints.

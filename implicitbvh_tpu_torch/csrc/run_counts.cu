@@ -4,32 +4,50 @@
 // Replaces implicitbvh_tpu/ops/tile_contact.py:tile_run_counts
 // (_run_count_kernel, _acols, _band_mask) on all four masks (sphere, box,
 // ray_box, ray_sphere), with one or two field sets and with moments.
-// Block (s, w) takes a-tile a_idx[s] of the a set against the R b-tiles of
-// the aligned run run_idx[s*W+w] of the b set; one thread per b-column j.
-// For each tile t whose NB band bits are not all zero, the thread loops over
-// the a-rows of the live bands only (the dead bands are skipped exactly as
-// the bits say: band skipping is part of the result) and counts its
-// column's contacts, with the j > i dedup on the diagonal pair when `dedup`
-// is set (never otherwise: with two field sets ti and tj index different
-// sets and are not compared).  A block reduction writes the pair's count and
-// its largest column count (colmax) straight to the reduced (S_cap*W*R,)
-// outputs: no per-lane count plane is materialised.  Slots with
-// s >= min(nsteps, S_cap) (read on the device) write zeros.
 //
-// Moments: the thread already holds every hit of its column, so it also
-// sums the hit rows i and their squares and writes the column's word
-// cc << 23 | (cc <= 2 ? (sum i << 15) + sum i^2 : 0) into row (slot*R + t)
-// of the (S_cap*W*R, 128) word plane (lanes >= G zero).  With cc <= 2 the
-// sum never carries between its fields; with cc > 2 the field is zero by
-// definition.  The kernel writes the whole plane, zero rows for dead tiles
-// and dead blocks included, so the wrapper allocates it uninitialised.
+// Bound on the H100: the instruction rate.  The predicates are explicitly
+// rounded (no FMA), so every counted operation is one instruction, and the
+// floor is num_checks tests x their float operations over the card's
+// non-FMA fp32 rate (twice the operations bound that counts an FMA as two);
+// the field reads are a few hundred MB of L2 traffic at most.  The design
+// cuts the instructions issued per test and launches for live work only:
 //
-// Bound on the H100: operations without moments (num_checks leaf tests of
-// ~11 flops for spheres, more for rays, against a few hundred MB of traffic
-// at most); with moments the word plane's bytes can take over (1.6 GB at
-// 100k rays against 262k leaves).  The a-tile sits in shared memory, prepared
-// once per block (ray reciprocals, d.d), each b-leaf in registers, and dead
-// tiles and bands cost only a branch.
+// - A persistent grid (as many blocks as fit on the card) works through
+//   the live pairs slot*R + t of the steps s < min(nsteps, S_cap), read on
+//   the device so that nothing syncs with the host.  Its teams of G/k
+//   threads (a warp at tiles of 32 to 128, four to a block; the whole block
+//   above) take groups of up to 32 pairs in turn from a counter, which
+//   balances the grid as the hardware balanced a grid of one block per
+//   slot (smaller groups where few pairs are live: a group of 32 left most
+//   of the card idle at the 65,536-box scene's 27,520 pairs).  A team looks
+//   up a group's pairs at once, one per lane, and tests the live
+//   ones (a non-zero band nibble, tj < Tb) in turn, so a dead pair costs a
+//   lane and a dead step no block: the grid zeroes the dead steps' counts
+//   and colmax with 16-byte stores.  The team keeps its step's a-tile
+//   a_idx[s], prepared once (ray reciprocals, 4 d.d), as 16-byte records in
+//   shared memory until the step changes.  (One block per step, tried
+//   first, left the card idle where few steps are live: one warp took a
+//   step's W*R pairs in turn.)
+// - Each of the G/k threads owns k b-columns j = p + m*G/k (k = 4, 2 or 1,
+//   the largest that keeps the team a multiple of 32) in registers, so
+//   one broadcast 128-bit load of an a-row (two for boxes and rays) feeds k
+//   tests.  The thread loops over the rows of the live bands only (band
+//   skipping is part of the result), each run of adjacent live bands as one
+//   loop, with the j > i dedup per column on the diagonal pair when `dedup`
+//   is set (never otherwise: with two field sets ti and tj index different
+//   sets).  Moment sums are taken only under the hit predicate.
+// - Each pair's count and largest column count (colmax) are reduced in
+//   the team and written straight to the reduced (S_cap*W*R,) outputs, 32
+//   pairs to a store: no per-lane count plane.
+//
+// Moments: the thread holds every hit of its columns, so it writes each
+// column's word cc << 23 | (cc <= 2 ? (sum i << 15) + sum i^2 : 0) into row
+// (slot*R + t) of the (S_cap*W*R, 128) plane, and zeroes lanes G..127.  With
+// cc <= 2 the sum never carries between its fields; with cc > 2 the field
+// is zero by definition.  Only the rows of live pairs (a live step, a
+// non-zero band nibble, tj < Tb) are written; the moment decode reads no
+// other row, so the rest of the plane (1.6 GB at 100k rays against 262k
+// leaves, almost all of it dead) stays unwritten.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -38,7 +56,34 @@ namespace {
 
 constexpr int WORD_LANES = 128;
 
-template <int KIND, bool MOMENTS>
+// Rows [i0, i1) of the a-tile records against the thread's K columns:
+// counts c and, with moments, the sums sw of (i << 15) + i^2 over the hit
+// rows i, which equal (sum i << 15) + sum i^2 for the at most 2 hits whose
+// word keeps them (no carry between the fields; more hits may wrap).
+template <int KIND, int K, bool MOMENTS, bool DIAG>
+__device__ __forceinline__ void count_rows(
+    const float4* a_s, int i0, int i1,
+    const float (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
+    int (&c)[K], int (&sw)[K]) {
+  constexpr int RA = ibvh::Rec<KIND>::RA;
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {
+    float a[4 * RA];
+    ibvh::load_rec<RA>(a_s, i, a);
+    const int wi = (i << 15) + i * i;
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      bool h = ibvh::rec_hit<KIND>(a, b[m]);
+      if constexpr (DIAG) h = h && i < j[m];
+      c[m] += h;
+      if constexpr (MOMENTS) {
+        if (h) sw[m] += wi;
+      }
+    }
+  }
+}
+
+template <int KIND, int K, bool MOMENTS, bool WARP>
 __global__ void run_counts_kernel(const int* __restrict__ a_idx,
                                   const int* __restrict__ run_idx,
                                   const int* __restrict__ bm,
@@ -47,123 +92,185 @@ __global__ void run_counts_kernel(const int* __restrict__ a_idx,
                                   const float* __restrict__ b_fields,
                                   int* __restrict__ counts,
                                   int* __restrict__ colmax,
-                                  int* __restrict__ words, int S_cap, int W,
+                                  int* __restrict__ words,
+                                  int* __restrict__ work, int S_cap, int W,
                                   int R, int NB, int Ta, int Tb, int dedup) {
-  constexpr int AP = ibvh::Mask<KIND>::AP;
-  constexpr int FB = ibvh::Mask<KIND>::FB;
-  extern __shared__ float a_s[];  // [AP][G]
-  __shared__ int red[64];
-  const int G = blockDim.x;
-  const int slot = blockIdx.x;
-  const int s = slot / W;
-  const int j = threadIdx.x;
-  const int SW = S_cap * W;
-  const int TPW = 32 / NB, NW = R / TPW;
-  int* cnt_o = counts + (size_t)slot * R;
-  int* cmx_o = colmax + (size_t)slot * R;
-  int* wrd_o = MOMENTS ? words + (size_t)slot * R * WORD_LANES : nullptr;
+  constexpr int RA = ibvh::Rec<KIND>::RA, RB = ibvh::Rec<KIND>::RB;
+  constexpr unsigned FULL = 0xffffffffu;
+  const ibvh::Team<WARP> team;
+  const int N = WARP ? 32 : blockDim.x, G = N * K, p = team.rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, NWP = N >> 5;
+  const bool writer = WARP || warp == 0;  // writes a group's counts
+  extern __shared__ float4 smem[];
+  float4* a_s = smem + (size_t)team.index() * G * RA;  // [G][RA] records
+  // a larger team's per-warp partial sums and maxima
+  int* part = reinterpret_cast<int*>(smem + (size_t)(blockDim.x / N) * G * RA);
+  const int SW = S_cap * W, TPW = 32 / NB, BH = G / NB;
+  __shared__ int grab_sh;
+  const int live_steps = min(nsteps[0], S_cap);
+  const long long L = (long long)live_steps * W * R;  // pairs slot * R + t
 
-  int any = 0;
-  if (s < min(nsteps[0], S_cap)) {
-    for (int q = 0; q < NW; ++q) any |= bm[(size_t)q * SW + slot];
-  }
-  if (any == 0) {
-    for (int t = j; t < R; t += G) {
-      cnt_o[t] = 0;
-      cmx_o[t] = 0;
-    }
-    if constexpr (MOMENTS) {
-      for (int k = j; k < R * WORD_LANES; k += G) wrd_o[k] = 0;
-    }
-    return;
-  }
-  const int ti = a_idx[s];
-  const int base = run_idx[slot] & 0xFFFF;
-  {
-    float a[AP];
-    ibvh::load_a_row<KIND>(a_fields, Ta, G, ti, j, a);
+  int jc[K];
 #pragma unroll
-    for (int f = 0; f < AP; ++f) a_s[f * G + j] = a[f];
-  }
-  __syncthreads();
+  for (int m = 0; m < K; ++m) jc[m] = p + m * N;
+  int loaded = -1, ti = 0;  // the step whose a-tile is in a_s
 
-  const int BH = G / NB;
-  for (int t = 0; t < R; ++t) {
-    const int word = bm[(size_t)(t / TPW) * SW + slot];
-    const int bmt = (word >> (NB * (t % TPW))) & ((1 << NB) - 1);
-    const int tj = base * R + t;
-    if (bmt == 0 || tj >= Tb) {  // uniform over the block
-      if (j == 0) {
-        cnt_o[t] = 0;
-        cmx_o[t] = 0;
+  const int gs = team.group_size(L);
+  for (;;) {
+    const long long g0 = (long long)gs * team.grab(work, &grab_sh);
+    if (g0 >= L) break;
+    // lane l looks up pair g0 + l; the team then takes the live ones
+    const long long f = g0 + lane;
+    const bool valid = lane < gs && f < L;
+    int slot = 0, t = 0, bmt = 0, tj = Tb;
+    if (valid) {
+      slot = (int)(f / R);
+      t = (int)(f - (long long)slot * R);
+      const int word = bm[(size_t)(t / TPW) * SW + slot];
+      bmt = (word >> (NB * (t % TPW))) & ((1 << NB) - 1);
+      tj = (run_idx[slot] & 0xFFFF) * R + t;
+    }
+    unsigned todo = __ballot_sync(FULL, valid && bmt != 0 && tj < Tb);
+    int my_c = 0, my_m = 0;
+    while (todo) {  // uniform over the team
+      const int q = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int slot_q = __shfl_sync(FULL, slot, q);
+      const int t_q = __shfl_sync(FULL, t, q);
+      const int bmt_q = __shfl_sync(FULL, bmt, q);
+      const int tj_q = __shfl_sync(FULL, tj, q);
+      const int s = slot_q / W;
+      if (s != loaded) {
+        team.sync();  // the previous step's readers are done with a_s
+        ti = a_idx[s];
+#pragma unroll
+        for (int m = 0; m < K; ++m) {
+          float a[4 * RA];
+          ibvh::load_a_rec<KIND>(a_fields, Ta, G, ti, jc[m], a);
+          ibvh::store_rec<RA>(a_s, jc[m], a);
+        }
+        team.sync();
+        loaded = s;
+      }
+      float b[K][4 * RB];
+#pragma unroll
+      for (int m = 0; m < K; ++m)
+        ibvh::load_b_rec<KIND>(b_fields, Tb, G, tj_q, jc[m], b[m]);
+      int c[K], sw[K];
+#pragma unroll
+      for (int m = 0; m < K; ++m) c[m] = sw[m] = 0;
+      const bool diag = dedup && tj_q == ti;
+      int bits = bmt_q;
+      while (bits) {  // each run of adjacent live bands as one loop
+        const int r0 = __ffs(bits) - 1;
+        const int len = __ffs(~(bits >> r0)) - 1;
+        bits &= ~(((1 << len) - 1) << r0);
+        const int i0 = r0 * BH, i1 = (r0 + len) * BH;
+        if (diag)
+          count_rows<KIND, K, MOMENTS, true>(a_s, i0, min(i1, jc[K - 1]), b,
+                                             jc, c, sw);
+        else
+          count_rows<KIND, K, MOMENTS, false>(a_s, i0, i1, b, jc, c, sw);
       }
       if constexpr (MOMENTS) {
-        for (int k = j; k < WORD_LANES; k += G) wrd_o[t * WORD_LANES + k] = 0;
+        int* wrd = words + ((size_t)slot_q * R + t_q) * WORD_LANES;
+#pragma unroll
+        for (int m = 0; m < K; ++m)
+          wrd[jc[m]] = (c[m] << 23) | (c[m] <= 2 ? sw[m] : 0);
+        for (int k = G + p; k < WORD_LANES; k += N) wrd[k] = 0;
       }
-      continue;
-    }
-    float b[FB];
-    ibvh::load_b_leaf<KIND>(b_fields, Tb, G, tj, j, b);
-    const bool diag = dedup && tj == ti;
-    int c = 0, si = 0, sq = 0;
-    for (int r = 0; r < NB; ++r) {
-      if (!((bmt >> r) & 1)) continue;
-      const int i1 = diag ? min((r + 1) * BH, j) : (r + 1) * BH;
-      for (int i = r * BH; i < i1; ++i) {
-        const int h = ibvh::leaf_hit<KIND>(a_s, G, i, b);
-        c += h;
-        if constexpr (MOMENTS) {
-          si += h * i;
-          sq += h * i * i;
+      int cs = 0, cm = 0;
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        cs += c[m];
+        cm = max(cm, c[m]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        cs += __shfl_xor_sync(FULL, cs, o);
+        cm = max(cm, __shfl_xor_sync(FULL, cm, o));
+      }
+      if constexpr (!WARP) {  // across the warps of the team
+        if (lane == 0) {
+          part[warp] = cs;
+          part[NWP + warp] = cm;
         }
+        __syncthreads();
+        cs = cm = 0;
+        for (int w = 0; w < NWP; ++w) {
+          cs += part[w];
+          cm = max(cm, part[NWP + w]);
+        }
+        __syncthreads();  // the partials are reused by the next pair
+      }
+      if (lane == q) {
+        my_c = cs;
+        my_m = cm;
       }
     }
-    if constexpr (MOMENTS) {
-      if (j < WORD_LANES)
-        wrd_o[t * WORD_LANES + j] = (c << 23) | (c <= 2 ? (si << 15) + sq : 0);
-      for (int k = G + j; k < WORD_LANES; k += G)
-        wrd_o[t * WORD_LANES + k] = 0;
-    }
-    int sum = 0, mx = 0;
-    ibvh::block_sum_max(c, &sum, &mx, red);
-    if (j == 0) {
-      cnt_o[t] = sum;
-      cmx_o[t] = mx;
+    if (valid && writer) {  // dead pairs of live steps write zeros here
+      counts[f] = my_c;
+      colmax[f] = my_m;
     }
   }
+  // the pairs of dead steps
+  const long long live = (long long)live_steps * W * R;
+  const long long all = (long long)S_cap * W * R;
+  ibvh::grid_zero(counts, live, all);
+  ibvh::grid_zero(colmax, live, all);
+}
+
+template <int KIND, int K, bool WARP>
+void launch_kind(bool moments, const void* a_idx, const void* run_idx,
+                 const void* bm, const void* nsteps, const void* a_fields,
+                 const void* b_fields, void* counts, void* colmax,
+                 void* words, void* work, int S_cap, int W, int R, int NB,
+                 int Ta, int Tb, int G, int dedup, cudaStream_t stream) {
+  auto kern = moments ? run_counts_kernel<KIND, K, true, WARP>
+                      : run_counts_kernel<KIND, K, false, WARP>;
+  // teams of one warp go WARP_TEAMS to a block; a larger team is the block
+  const int threads = WARP ? 32 * ibvh::WARP_TEAMS : G / K;
+  const int teams = threads / (G / K);
+  const size_t shmem =
+      (size_t)teams * G * ibvh::Rec<KIND>::RA * sizeof(float4) +
+      (WARP ? 0 : 2 * (size_t)(threads / 32) * sizeof(int));
+  const long long pairs = (long long)S_cap * W * R;
+  const int blocks = ibvh::persistent_blocks(kern, threads, shmem,
+                                             (pairs + teams - 1) / teams);
+  kern<<<blocks, threads, shmem, stream>>>(
+      (const int*)a_idx, (const int*)run_idx, (const int*)bm,
+      (const int*)nsteps, (const float*)a_fields, (const float*)b_fields,
+      (int*)counts, (int*)colmax, (int*)words, (int*)work, S_cap, W, R, NB,
+      Ta, Tb, dedup);
 }
 
 }  // namespace
 
 // a_idx: (S_cap,) i32; run_idx: (S_cap*W,) i32; bm: (R*NB/32, S_cap*W) i32
 // band words; nsteps: (1,) i32; a_fields: (FA, Ta, G) f32; b_fields:
-// (FB, Tb, G) f32 (may be a_fields); counts, colmax: (S_cap*W*R,) i32;
-// words: (S_cap*W*R, 128) i32 or null (no moments; with moments G <= 128).
-// kind: 0 sphere, 1 box, 2 ray_box, 3 ray_sphere.  G is the block size (a
-// multiple of 32, at most 1024).  Returns cudaGetLastError().
+// (FB, Tb, G) f32 (may be a_fields); counts, colmax: (S_cap*W*R,) i32,
+// 16-byte aligned; words: (S_cap*W*R, 128) i32 or null (no moments; with
+// moments G <= 128; only the rows of live pairs are written); work: (1,)
+// i32, zeroed by the caller.  kind: 0 sphere, 1 box, 2 ray_box, 3
+// ray_sphere.  G is the tile size (a multiple of 32, at most 1024).
+// Returns cudaGetLastError().
 extern "C" int run_counts_launch(const void* a_idx, const void* run_idx,
                                  const void* bm, const void* nsteps,
                                  const void* a_fields, const void* b_fields,
                                  void* counts, void* colmax, void* words,
-                                 int S_cap, int W, int R, int NB, int Ta,
-                                 int Tb, int G, int kind, int dedup,
+                                 void* work, int S_cap, int W, int R, int NB,
+                                 int Ta, int Tb, int G, int kind, int dedup,
                                  void* stream) {
   if (G % 32 != 0 || G < 32 || G > 1024 || NB < 1 || 32 % NB != 0 ||
-      R % (32 / NB) != 0 || (words != nullptr && G > WORD_LANES))
+      G % NB != 0 || R < 1 || R > 32 || R % (32 / NB) != 0 || W < 1 ||
+      (words != nullptr && G > WORD_LANES) ||
+      ((size_t)counts & 15) != 0 || ((size_t)colmax & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const int blocks = S_cap * W;
-  const size_t shmem =
-      (size_t)ibvh::prepared_a_floats(kind) * G * sizeof(float);
-  if (blocks > 0) {
-    IBVH_DISPATCH_KIND(kind, {
-      auto kern = words ? run_counts_kernel<KIND, true>
-                        : run_counts_kernel<KIND, false>;
-      kern<<<blocks, G, shmem, (cudaStream_t)stream>>>(
-          (const int*)a_idx, (const int*)run_idx, (const int*)bm,
-          (const int*)nsteps, (const float*)a_fields, (const float*)b_fields,
-          (int*)counts, (int*)colmax, (int*)words, S_cap, W, R, NB, Ta, Tb,
-          dedup);
-    })
+  if (S_cap > 0) {
+    IBVH_DISPATCH_KIND(kind, IBVH_DISPATCH_TEAM(
+        G, launch_kind, words != nullptr, a_idx, run_idx, bm, nsteps,
+        a_fields, b_fields, counts, colmax, words, work, S_cap, W, R, NB, Ta,
+        Tb, G, dedup, (cudaStream_t)stream))
   }
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 
 from .compaction import finish_compact, tile_compact, tile_compact_plain
 from .subtile import subtile_band_bits, subtile_band_bits_plain
-from .tile_contact import (tile_group_contacts, tile_group_contacts_plain,
+from .tile_contact import (run_live_pairs, tile_group_contacts,
+                           tile_group_contacts_plain,
                            tile_group_emit, tile_group_emit_plain,
                            tile_pair_contacts, tile_pair_contacts_plain,
                            tile_run_counts, tile_run_counts_plain)
@@ -18,8 +19,8 @@ def reset_launch_counts():
 
 
 __all__ = ["KERNELS", "finish_compact", "reset_launch_counts",
-           "subtile_band_bits", "subtile_band_bits_plain", "tile_compact",
-           "tile_compact_plain", "tile_group_contacts",
+           "run_live_pairs", "subtile_band_bits", "subtile_band_bits_plain",
+           "tile_compact", "tile_compact_plain", "tile_group_contacts",
            "tile_group_contacts_plain", "tile_group_emit",
            "tile_group_emit_plain", "tile_pair_contacts",
            "tile_pair_contacts_plain", "tile_run_counts",

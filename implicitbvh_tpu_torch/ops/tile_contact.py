@@ -18,12 +18,14 @@ is ``x0, x1, x2, r``, a box ``lo0, lo1, lo2, up0, up1, up2``, a ray ``p0,
 p1, p2, d0, d1, d2``.  Padded entries are NaN, so that every predicate on
 them is false.
 
-All four kernels are bound by operations on the H100 (the leaf tests), not
-by bytes, except the count kernel with ``moments``, whose word plane can
-take longer to write than its tests take.  The count and emit kernels keep the a-tile in shared memory and
-one b-leaf per thread in registers; the slot kernels keep the b-tile in
-shared memory and one a-row per thread.  Dead tiles and bands cost a
-branch, counts are reduced and scanned in the block, and contacts are
+All four kernels are bound on the H100 by the leaf tests, not by bytes.
+The predicates are explicitly rounded (no FMA), so the count and slot
+kernels are bound by the instruction rate: they run a persistent grid over
+the live tile pairs only, keep one side of each tile pair as 16-byte records
+in shared memory and k = 4, 2 or 1 leaves of the other per thread in
+registers, so that one broadcast load feeds k tests.  The emit kernel keeps
+the a-tile in shared memory and one b-leaf per thread.  Dead tiles and bands
+cost a branch, counts are reduced and scanned in the block, and contacts are
 written at scanned offsets, so none needs the TPU kernels' lane planes,
 cursors or one-hot compaction.
 """
@@ -167,6 +169,21 @@ def tile_run_counts_plain(a_idx, run_idx, bm_words, nsteps, a_fields,
     return counts, colmax
 
 
+def run_live_pairs(run_idx, bm_words, nsteps, S_cap, Tb, *, R, NB):
+    """(S_cap*W*R,) bool: the (step, w, t) tile pairs that
+    :func:`tile_run_counts` tests (a live step, a non-zero band nibble, a
+    b-tile below ``Tb``); on the card only their word rows are written."""
+    SW = run_idx.shape[0]
+    W = SW // S_cap
+    TPW = 32 // NB
+    t = torch.arange(R, device=run_idx.device)
+    bmt = (bm_words[t // TPW].T >> (NB * (t % TPW))) & ((1 << NB) - 1)
+    tj = (run_idx & 0xFFFF)[:, None] * R + t
+    step = torch.arange(SW, device=run_idx.device) // W
+    live = (bmt != 0) & (tj < Tb) & (step < nsteps.clamp(max=S_cap))[:, None]
+    return live.reshape(-1)
+
+
 def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
                     b_fields=None, *, mask_kind, R=8, NB=4, dedup=False,
                     moments=False):
@@ -187,14 +204,19 @@ def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
     ``moments`` (tiles of at most 128) it also returns the (S_cap*W*R, 128)
     int32 word plane: for b-column j of a pair, with cc hits at a-rows i,
     ``cc << 23 | (sum i << 15) + sum i^2`` when cc <= 2 and ``cc << 23``
-    otherwise; dead pairs, pad steps and lanes >= G are zero.
+    otherwise; lanes >= G are zero.  Only the rows of live pairs
+    (:func:`run_live_pairs`) are defined: the kernel leaves the rows of dead
+    pairs and pad steps unwritten (the plain version zeroes them), and the
+    moment decode reads none of them.
 
     Replaces ``implicitbvh_tpu/ops/tile_contact.py:tile_run_counts``
-    (``_run_count_kernel``).  On the H100 it is bound by operations (the
-    leaf tests of the live bands, ``num_checks``) or, with ``moments``, by
-    the bytes of the word plane; ``csrc/run_counts.cu`` tests only the live
-    bands, reduces each pair in its block and writes every row of the plane
-    itself, so the plane is allocated uninitialised.
+    (``_run_count_kernel``).  On the H100 it is bound by the instruction rate
+    (the explicitly rounded leaf tests of the live bands, ``num_checks``);
+    in ``csrc/run_counts.cu`` the teams of a persistent grid take the live
+    pairs in groups from a counter, test k columns per thread against each
+    a-row record they load and reduce each pair in the team; the grid
+    zeroes the dead steps' counts itself, so every output is allocated
+    uninitialised.
     """
     b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
     S_cap, W = _check_runs(a_idx, run_idx, bm_words, nsteps, a_fields, R, NB)
@@ -207,18 +229,20 @@ def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
             mask_kind=mask_kind, R=R, NB=NB, dedup=dedup, moments=moments)
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("run_counts", "run_counts_launch",
-                          [P] * 9 + [I] * 9 + [P])
+                          [P] * 10 + [I] * 9 + [P])
     dev = a_fields.device
     counts = torch.empty(S_cap * W * R, dtype=torch.int32, device=dev)
     colmax = torch.empty_like(counts)
     words = torch.empty((S_cap * W * R, WORD_LANES), dtype=torch.int32,
                         device=dev) if moments else None
+    work = torch.zeros(1, dtype=torch.int32, device=dev)  # the grid's queue
     with torch.cuda.device(dev):
         _build.launch(fn, "run_counts", a_idx.data_ptr(), run_idx.data_ptr(),
                       bm_words.data_ptr(), nsteps.data_ptr(),
                       a_fields.data_ptr(), b_fields.data_ptr(),
                       counts.data_ptr(), colmax.data_ptr(),
-                      words.data_ptr() if moments else None, S_cap, W, R, NB,
+                      words.data_ptr() if moments else None, work.data_ptr(),
+                      S_cap, W, R, NB,
                       a_fields.shape[1], b_fields.shape[1], G,
                       _KIND[mask_kind], int(dedup))
     tile_run_counts.launches += 1
@@ -447,9 +471,11 @@ def tile_group_contacts(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
 
     Replaces ``implicitbvh_tpu/ops/tile_contact.py:tile_group_contacts``
     (``_group_kernel``, ``_pair_compact_vrows``).  On the H100 it is bound
-    by operations (the live bands' leaf tests); ``csrc/group_contacts.cu``
-    runs one block per entry, one thread per a-row, counts in one pass and
-    writes the slots in a second pass over the pairs with contacts only.
+    by the instruction rate (the live bands' explicitly rounded leaf tests);
+    in ``csrc/group_contacts.cu`` the teams of a persistent grid take the
+    live entries in groups from a counter, test k a-rows per thread (the
+    a-tile prepared once for a step's W entries), count in one pass and
+    write the slots in a second pass over the pairs with contacts only.
     """
     b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
     _check_slot_caps(ROW_CAP, CAP_PAIR)
@@ -488,11 +514,12 @@ tile_group_contacts.launches = 0
 def _slot_outputs(n, CAP_PAIR, dev):
     """Slot outputs of the slot kernels: the kernel fills every lane below
     a pair's count and CAP_PAIR, and lanes past the count are never read,
-    so the slots are left unfilled."""
+    so the slots are left unfilled.  ``over`` holds the overflow flag and
+    the grid's work counter."""
     return (torch.empty((n, CAP_PAIR), dtype=torch.int32, device=dev),
             torch.empty((n, CAP_PAIR), dtype=torch.int32, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev))
+            torch.zeros(2, dtype=torch.int32, device=dev))
 
 
 def tile_pair_contacts_plain(packed, npairs, a_fields, b_fields=None, *,
