@@ -8,20 +8,23 @@ Run from the repository root on a machine with one CUDA card::
 It builds the CUDA kernels from ``implicitbvh_tpu_torch/csrc/`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once), then drives both
 routes of tile self-contact and of two-tree contact: the two-phase route
-(kernels B1 band bits, B2 counts, B3 emit) and the pair-granularity
-fallback (B1, B5 compaction, B4 grouped slots), which small capacities and
-grown slot caps take; both routes of the batch ray query (two-phase: B2
+(kernels B1 band bits, B2 counts, B3 emit with its plan scan) and the
+pair-granularity fallback (B1, the whole compaction ``compact_flat``: B5's
+count pass and its flat write pass, B4 grouped slots), which small
+capacities and grown slot caps take; both routes of the batch ray query (two-phase: B2
 with a ray mask and moment words, the moment decode, B3 with a ray mask;
 fallback: B4 with a ray mask); the public ``traverse`` dispatch; and the
-leaf-vs-tree walks (torch ops), where growth past the slot caps ends.  B6 (per-pair slots of a packed pair list) is on no path and is held
-against its plain version only.
+leaf-vs-tree walks (torch ops), where growth past the slot caps ends.  B6
+(per-pair slots of a packed pair list) and ``tile_compact`` (B5's padded
+slots, which ``compact_flat`` replaces on the path) are on no path and are
+held against their plain versions at the path's inputs only.
 
 1. runs each kernel and its plain PyTorch version on the same inputs on the
    card -- the inputs its stage gets on a small scene (tile 32) on both
    routes -- and requires exact equality (the predicates are comparisons of
-   identically rounded float32 values, the outputs are integers; slot
-   lanes past a pair's count and B2's word rows of dead pairs are undefined
-   and not compared);
+   identically rounded float32 values, the outputs are integers, B3's and
+   ``compact_flat``'s in full; slot lanes past a pair's count and B2's word
+   rows of dead pairs are undefined and not compared);
 2. drives the two-phase route at the bench scene: 2^20 triangles ->
    ``bsphere_from_triangles`` -> ``build`` -> ``traverse_tiles_fixed``
    (capacity 131072, ``TileTraversal(row_cap=4, pair_cap=32)``) with every
@@ -30,8 +33,9 @@ against its plain version only.
    no host sync and at least one launch of B1, B2 and B3;
 3. drives the fallback on the same BVH (``TileTraversal(row_cap=32,
    pair_cap=512)``, the caps two slot-cap growths reach) the same way; it
-   requires what phase 2 does, launches of B1, B4 and B5 and none of B2
-   and B3, and the contact set and total of phase 2;
+   requires what phase 2 does, launches of B1, B4 and ``compact_flat`` and
+   none of B2, B3 and ``tile_compact``, and the contact set and total of
+   phase 2;
 4. holds each kernel against its plain version at the bench scene's
    inputs of its route;
 5. runs a 65,536-triangle scene through both routes on the card and on the
@@ -66,7 +70,7 @@ against its plain version only.
 11. holds the two-tree variants against their plain versions on a small
     two-body scene (4,096 and 2,048 leaves, tile 32, as spheres and as
     boxes): B1 with ``triangle=False`` and B2, B3, B4 with ``dedup=False``
-    on two field sets, and B5 on the full grid, at the inputs both routes
+    on two field sets, and ``compact_flat`` and B5 on the full grid, at the inputs both routes
     of ``traverse_tiles_pair_fixed`` give them; both routes must return
     the pairs of a brute force (``iscontact``);
 12. drives the JAX package's own pair benchmark (config 4 of
@@ -100,12 +104,14 @@ against its plain version only.
     the rest) and the full-width pair query on both routes end to end and
     by stage, each with its host enqueue time and a profile (device time
     by kernel, device busy share), and each kernel and variant at its
-    full-size inputs beside its plain version and, for B5,
-    ``torch.masked_select``, also beside the port's whole compaction
-    (``tile_compact`` + ``finish_compact`` in one call); for B2, B4 and B6
-    also the kernel's own device time from the profiler, and for B2 and B4
-    the time at the bench scene's inputs with ``nsteps`` set to 0 (the cost
-    of the grid with no live step).
+    full-size inputs beside its plain version and its kernels' own device
+    time from the profiler; ``compact_flat`` and B5 also beside
+    ``torch.masked_select`` on the same mask and payloads, at the path's
+    capacity and like for like (capacity = the mask's length, where the
+    lists equal ``masked_select``'s), with the old composition
+    ``tile_compact`` + ``finish_compact`` in one call beside them; B2, B3
+    and B4 also at the bench scene's inputs with ``nsteps`` set to 0 (the
+    cost of the grid with no live step).
 
 Each row's bound is printed with both of its terms (bytes and operations)
 and with the instruction floor of its operations (twice the operations
@@ -281,10 +287,25 @@ def main() -> int:
             ops.tile_pair_contacts, ops.tile_pair_contacts_plain,
             "implicitbvh_tpu_torch/csrc/group_contacts.cu",
             "implicitbvh_tpu/ops/tile_contact.py:333"),
+        # tile_compact and finish_compact (compaction.py:151) in one call
+        "compact_flat": (
+            ops.compact_flat, ops.compact_flat_plain,
+            "implicitbvh_tpu_torch/csrc/compact.cu",
+            "implicitbvh_tpu/ops/compaction.py:106"),
     }
+    # the CUDA kernels of each wrapper, by name in the profiler
+    device_kernel = {"subtile_band_bits": ("band_bits_kernel",),
+                     "tile_run_counts": ("run_counts_kernel",),
+                     "tile_group_emit": ("emit_plan_kernel",
+                                         "group_emit_kernel"),
+                     "tile_group_contacts": ("slot_contacts_kernel",),
+                     "tile_compact": ("compact_kernel",),
+                     "tile_pair_contacts": ("slot_contacts_kernel",),
+                     "compact_flat": ("compact_kernel",
+                                      "compact_flat_kernel")}
     two_phase_kernels = ("subtile_band_bits", "tile_run_counts",
                          "tile_group_emit")
-    fallback_kernels = ("subtile_band_bits", "tile_compact",
+    fallback_kernels = ("subtile_band_bits", "compact_flat",
                         "tile_group_contacts")
     ray_two_phase_kernels = ("tile_run_counts", "tile_group_emit")
     ray_fallback_kernels = ("tile_group_contacts",)
@@ -342,14 +363,13 @@ def main() -> int:
                                       R=kw["R"], NB=kw["NB"])
             return ([got[0], got[1], got[2][live]],
                     [want[0], want[1], want[2][live]])
-        if name == "tile_group_emit":  # contacts compared as a sorted set
-            def norm(result):
-                gi, gj, total, flags = result
-                n = int(total.clamp(max=gi.shape[0]))
-                pairs = (gi[:n].long() << 32) | gj[:n].long()
-                return [pairs.sort().values, total.reshape(1),
-                        flags.reshape(1)]
-            return norm(got), norm(want)
+        if name == "tile_group_emit":  # both streams in full, bit for bit
+            return ([got[0], got[1], got[2].reshape(1), got[3].reshape(1)],
+                    [want[0], want[1], want[2].reshape(1),
+                     want[3].reshape(1)])
+        if name == "compact_flat":
+            return ([*got[0], got[1].reshape(1), got[2].reshape(1)],
+                    [*want[0], want[1].reshape(1), want[2].reshape(1)])
         if name in ("tile_group_contacts", "tile_pair_contacts"):
             # counts and overflow, and every lane below a pair's count and
             # CAP_PAIR (-1 where a row over ROW_CAP left a gap)
@@ -395,12 +415,20 @@ def main() -> int:
                                 int((g.long() - w.long()).abs().max()))
         log(f"{label}: {row} kernel == plain (exact)")
 
+    def compact_inputs(seen):
+        """B5's inputs: ``compact_flat``'s at the path's call, without the
+        capacity."""
+        args, kw = seen["compact_flat"]
+        return args, {k: v for k, v in kw.items() if k != "capacity"}
+
     def check_kernels(seen, label, names, pair=False):
         missing = set(names) - set(seen)
         if missing:
             raise AssertionError(f"{label}: {sorted(missing)} not called")
         for name in names:
             check_kernel(name, *seen[name], label, pair)
+        if "compact_flat" in names:
+            check_kernel("tile_compact", *compact_inputs(seen), label, pair)
 
     two_phase = ib.TileTraversal(**TWO_PHASE)
     fallback = ib.TileTraversal(**FALLBACK)
@@ -486,7 +514,8 @@ def main() -> int:
         f"{ov_fb}, num_checks {float(num_checks_fb):.0f}, launches "
         f"{launches_fb}")
     if min(launches_fb[n] for n in fallback_kernels) < 1 or \
-            launches_fb["tile_run_counts"] or launches_fb["tile_group_emit"]:
+            launches_fb["tile_run_counts"] or launches_fb["tile_group_emit"] \
+            or launches_fb["tile_compact"]:
         raise AssertionError(f"fallback launches are wrong: {launches_fb}")
     keys_fb = check_contacts(total_fb, contacts_fb, ov_fb, spheres,
                              "fallback")
@@ -509,8 +538,9 @@ def main() -> int:
     b6_in = pair_list(bvh, fallback)
     check_kernel("tile_pair_contacts", *b6_in, label)
     inputs = {n: seen_1m[n] for n in two_phase_kernels}
-    inputs.update({n: seen_fb[n] for n in ("tile_compact",
+    inputs.update({n: seen_fb[n] for n in ("compact_flat",
                                            "tile_group_contacts")})
+    inputs["tile_compact"] = compact_inputs(seen_fb)
     inputs["tile_pair_contacts"] = b6_in
 
     # 5. both routes on the card against the port on the CPU; README demo
@@ -805,10 +835,10 @@ def main() -> int:
 
     def check_pair_launches(launches, route, label):
         want, none = ((two_phase_kernels, ("tile_group_contacts",
-                                           "tile_compact"))
+                                           "compact_flat", "tile_compact"))
                       if route == "two-phase" else
                       (fallback_kernels, ("tile_run_counts",
-                                          "tile_group_emit")))
+                                          "tile_group_emit", "tile_compact")))
         if min(launches[n] for n in want) < 1 or \
                 any(launches[n] for n in none):
             raise AssertionError(f"{label}: launches are wrong: {launches}")
@@ -1238,10 +1268,12 @@ def main() -> int:
             ops_n = tests * FLOPS_PER_TEST[kw["mask_kind"]]
             b = nbytes(a_idx, b_idx, nsteps, *set(fields)) + \
                 2 * kw["CAP"] * 4 + 4
-        elif name == "tile_compact":
+        elif name in ("tile_compact", "compact_flat"):
             # the mask is read in full, each payload only in the 32-byte
-            # sectors that hold a kept survivor; the slots are zeroed and
-            # written, counted once, with the per-tile counts and flags
+            # sectors that hold a kept survivor; B5's slots are zeroed and
+            # written, counted once, with the per-tile counts and flags;
+            # compact_flat keeps the survivors below the capacity and
+            # writes the two lists, the total and the flag
             mask, payloads = args
             tiles_n = mask.shape[0] // (128 * 128)
             m = mask.view(tiles_n, 128, 128)
@@ -1251,9 +1283,15 @@ def main() -> int:
             row_off = row_cnt.cumsum(1) - row_cnt
             kept = m & (rank < kw["row_cap"]) & \
                 (row_off[:, :, None] + rank < kw["cap"])
+            out_b = (len(payloads) * kw["cap"] + 2) * tiles_n * 4
+            if name == "compact_flat":
+                capped = row_cnt.sum(1).clamp(max=kw["cap"])
+                base = capped.cumsum(0) - capped
+                kept &= base[:, None, None] + row_off[:, :, None] + rank < \
+                    kw["capacity"]
+                out_b = (len(payloads) * kw["capacity"] + 2) * 4
             sectors = int(kept.view(-1, 8).any(1).sum())
-            b = nbytes(mask) + len(payloads) * sectors * 32 + \
-                (len(payloads) * kw["cap"] + 2) * tiles_n * 4
+            b = nbytes(mask) + len(payloads) * sectors * 32 + out_b
         else:  # the slot kernels: the lanes below each count are written
             if name == "tile_group_contacts":
                 a_idx, b_idx, nsteps, *fields = args
@@ -1281,10 +1319,11 @@ def main() -> int:
             b = nbytes(*ins) + 4 * counts.numel() + 4 + 2 * 4 * lanes
         return b / HBM_BYTES_PER_S * 1e3, ops_n / FP32_OPS_PER_S * 1e3
 
-    def device_ms(fn, kernel, reps=7):
-        """The device time of CUDA kernel ``kernel`` (its name's start) per
-        call of ``fn``, from the profiler's ``key_averages()``: the
-        kernel's own time, without the wrapper's other work."""
+    def device_ms(fn, names, reps=7):
+        """The device time per call of ``fn`` of the CUDA kernels whose
+        names hold one of ``names``, from the profiler's
+        ``key_averages()``: the kernels' own time, without the wrapper's
+        other work."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -1295,14 +1334,11 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel in e.key)
+                 if e.device_type == DeviceType.CUDA
+                 and any(n in e.key for n in names))
         if not us:
-            raise RuntimeError(f"the profiler recorded no time of {kernel}")
+            raise RuntimeError(f"the profiler recorded no time of {names}")
         return us / reps / 1e3
-
-    device_kernel = {"tile_run_counts": "run_counts_kernel",
-                     "tile_group_contacts": "slot_contacts_kernel",
-                     "tile_pair_contacts": "slot_contacts_kernel"}
 
     launches = dict(launches_fb)
     launches.update({n: launches_2p[n] for n in two_phase_kernels})
@@ -1330,6 +1366,8 @@ def main() -> int:
                   for n in two_phase_kernels]
     row_specs += [(n, seen_pair_fb[n], pair_runs["fallback"][1][n])
                   for n in fallback_kernels[1:]]      # B1: the row above
+    row_specs.append(("tile_compact", compact_inputs(seen_pair_fb),
+                      pair_runs["fallback"][1]["tile_compact"]))
     rows = []
     for k, (name, (args, kw), n_launches) in enumerate(row_specs):
         wrapper, plain, source, replaces = kernels[name]
@@ -1340,37 +1378,52 @@ def main() -> int:
         b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
             (ops_ms, "operations")
         lib_ms = None
-        if name == "tile_compact":
+        if name in ("tile_compact", "compact_flat"):
             # yardstick only: the same survivors, in the same order when
             # nothing overflows; the port never calls it
             mask, payloads = args
             stacked = torch.stack(payloads)
             lib_ms = time_ms(lambda: torch.masked_select(stacked, mask))
+            want = torch.masked_select(stacked, mask).view(len(payloads), -1)
+            M = mask.shape[0]
+        if name == "tile_compact":
             slots, counts, _ = wrapper(*args, **kw)
-            flat, n = ops.finish_compact(slots, counts, mask.shape[0])
-            if not torch.equal(torch.stack(flat)[:, :int(n)],
-                               torch.masked_select(stacked, mask).view(
-                                   len(payloads), -1)):
+            flat, n = ops.finish_compact(slots, counts, M)
+            if not torch.equal(torch.stack(flat)[:, :int(n)], want):
                 raise AssertionError("tile_compact + finish_compact differ "
                                      "from torch.masked_select")
-            # like for like: the port's whole compaction in one call
+        if name == "compact_flat":
+            # like for like: the whole compaction at capacity M, where the
+            # lists hold every survivor, beside the old composition
+            kw_m = dict(kw, capacity=M)
+            flat, n, _ = wrapper(*args, **kw_m)
+            if not torch.equal(torch.stack(flat)[:, :int(n)], want) or \
+                    not torch.equal(torch.stack(flat),
+                                    torch.stack(plain(*args, **kw_m)[0])):
+                raise AssertionError("compact_flat differs from "
+                                     "torch.masked_select or its plain "
+                                     "version at capacity M")
+            tc_kw = {k: v for k, v in kw.items() if k != "capacity"}
+            flat_ms = time_ms(lambda: wrapper(*args, **kw_m))
+            flat_dev = device_ms(lambda: wrapper(*args, **kw_m),
+                                 device_kernel[name])
             both_ms = time_ms(lambda: ops.finish_compact(
-                *wrapper(*args, **kw)[:2], mask.shape[0]))
-            log(f"time: {row} like for like: tile_compact + finish_compact "
-                f"{both_ms:.4f} ms, torch.masked_select {lib_ms:.4f} ms "
-                f"[{card}]")
+                *ops.tile_compact(*args, **tc_kw)[:2], M))
+            log(f"time: {row} like for like (capacity = the mask's "
+                f"length {M}, the lists equal torch.masked_select's): "
+                f"compact_flat {flat_ms:.4f} ms (device {flat_dev:.4f} ms), "
+                f"tile_compact + finish_compact {both_ms:.4f} ms, "
+                f"torch.masked_select {lib_ms:.4f} ms [{card}]")
         log(f"time: {row} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
             f"launches {n_launches}, bound {b_ms:.6f} ms ({b_by}; bytes "
             f"{bytes_ms:.6f}, operations {ops_ms:.6f}; without FMA the "
             f"instruction floor of the operations is {2 * ops_ms:.6f}) "
             f"[{card}]")
-        if name in device_kernel:
-            d_ms = device_ms(lambda: wrapper(*args, **kw),
-                             device_kernel[name])
-            log(f"time: {row} {device_kernel[name]} on the device (profiler, "
-                f"mean of 7 calls) {d_ms:.4f} ms [{card}]")
-        if k < len(kernels) and name in ("tile_run_counts",
+        d_ms = device_ms(lambda: wrapper(*args, **kw), device_kernel[name])
+        log(f"time: {row} {' + '.join(device_kernel[name])} on the device "
+            f"(profiler, mean of 7 calls) {d_ms:.4f} ms [{card}]")
+        if k < len(kernels) and name in ("tile_run_counts", "tile_group_emit",
                                          "tile_group_contacts"):
             # the dead grid: the same inputs with no live step
             dead = list(args)
@@ -1380,7 +1433,8 @@ def main() -> int:
                 f"{time_ms(lambda: wrapper(*dead, **kw)):.4f} ms [{card}]")
         rows.append({"name": row, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": n_launches,
-                     "max_abs_err": errs[row], "ms": k_ms, "plain_ms": p_ms,
+                     "max_abs_err": errs[row], "ms": k_ms,
+                     "device_ms": d_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
                      "library_ms": lib_ms})

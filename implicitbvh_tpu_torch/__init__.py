@@ -7,30 +7,40 @@ Entry points run on CUDA unless the caller passes CPU tensors or
 version.  Ported: triangles -> bounding spheres or boxes -> ``build`` (BBox
 or BSphere nodes) -> ``traverse(bvh)`` self-contact, ``traverse(bvh1,
 bvh2)`` two-tree contact and ``traverse_rays`` batch ray queries, each
-through the tile engine (both routes) or the leaf-vs-tree walk.  BFS and
-DFS traversal, 64-bit indices and the extended Morton order are not.
+through the tile engine (both routes) or the leaf-vs-tree walk.  BFS
+traversal, DFS self-contact, 64-bit indices and the extended Morton order
+are not.
 """
 
-from .build import BVH, Leaves, build, wrap_bounding_volumes
+from .build import (BVH, BoundingVolume, Leaves, build, compute_build_level,
+                    wrap_bounding_volumes)
+from .morton import (DefaultMortonAlgorithm, MortonAlgorithm,
+                     bounding_volumes_extrema, morton_encode, morton_split3)
 from .options import DEFAULT_OPTIONS, BVHOptions
 from .raytrace import traverse_rays, traverse_rays_fixed
 from .traverse import (BFSTraversal, BVHTraversal, DFSTraversal,
                        LVTTraversal, TileTraversal, TraversalAlgorithm,
-                       traverse, traverse_lvt_pair_fixed,
+                       default_start_level, traverse,
+                       traverse_lvt_pair_fixed,
                        traverse_lvt_single_fixed, traverse_rays_tiles,
                        traverse_rays_tiles_fixed, traverse_tiles,
                        traverse_tiles_fixed, traverse_tiles_pair,
                        traverse_tiles_pair_fixed)
+from .tree import ImplicitTree, compute_skips
 from .volumes import (BBox, BSphere, bbox_from_triangles,
-                      bsphere_from_triangles, iscontact, isintersection,
-                      merge)
+                      bsphere_from_triangles, center, from_triangles,
+                      iscontact, isintersection, merge)
 
 __all__ = [
     "BBox", "BFSTraversal", "BSphere", "BVH", "BVHOptions", "BVHTraversal",
-    "DEFAULT_OPTIONS", "DFSTraversal", "LVTTraversal", "Leaves",
-    "TileTraversal", "TraversalAlgorithm", "bbox_from_triangles",
-    "bsphere_from_triangles", "build", "iscontact", "isintersection",
-    "merge", "traverse", "traverse_lvt_pair_fixed",
+    "BoundingVolume", "DEFAULT_OPTIONS", "DFSTraversal",
+    "DefaultMortonAlgorithm", "ImplicitTree", "LVTTraversal", "Leaves",
+    "MortonAlgorithm", "TileTraversal", "TraversalAlgorithm",
+    "bbox_from_triangles", "bounding_volumes_extrema",
+    "bsphere_from_triangles", "build", "center", "compute_build_level",
+    "compute_skips", "default_start_level", "from_triangles", "iscontact",
+    "isintersection", "merge", "morton_encode", "morton_split3", "traverse",
+    "traverse_lvt_pair_fixed",
     "traverse_lvt_single_fixed", "traverse_rays", "traverse_rays_fixed",
     "traverse_rays_tiles", "traverse_rays_tiles_fixed", "traverse_tiles",
     "traverse_tiles_fixed", "traverse_tiles_pair",

@@ -38,6 +38,10 @@ class Leaves:
         return Leaves(self.volume[idx], self.index[idx], self.morton[idx])
 
 
+# the JAX package's (and the reference's) name of the leaf element type
+BoundingVolume = Leaves
+
+
 def wrap_bounding_volumes(volumes: Volume,
                           options: BVHOptions = DEFAULT_OPTIONS,
                           indices=None) -> Leaves:

@@ -49,11 +49,6 @@ struct Mask<RAY_SPHERE> {
   static constexpr int FA = 6, AP = 7, FB = 4;
 };
 
-// Host-side copy of AP (shared-memory size of the emit kernel's launcher).
-inline int prepared_a_floats(int kind) {
-  return kind == SPHERE ? 4 : kind == RAY_SPHERE ? 7 : 6;
-}
-
 // Sphere-sphere contact: dx*dx + dy*dy + dz*dz <= (ra + rb)^2, evaluated
 // left to right as in implicitbvh_tpu/ops/tile_contact.py:_band_mask.
 __device__ __forceinline__ bool sphere_hit(const float* a, const float* b) {
@@ -157,22 +152,12 @@ __device__ __forceinline__ void load_b_leaf(const float* __restrict__ fields,
     b[f] = fields[((size_t)f * Tb + tj) * G + j];
 }
 
-// Row i of the prepared a-tile (shared memory, field-major with pitch G)
-// against this thread's b-leaf (registers).
-template <int KIND>
-__device__ __forceinline__ bool leaf_hit(const float* a_s, int G, int i,
-                                         const float* b) {
-  float a[Mask<KIND>::AP];
-#pragma unroll
-  for (int f = 0; f < Mask<KIND>::AP; ++f) a[f] = a_s[f * G + i];
-  return pair_hit<KIND>(a, b);
-}
-
 // ---------------------------------------------------------------------------
-// Records of the count and slot kernels (B2 run_counts.cu, B4
-// group_contacts.cu).  A prepared a-row or b-leaf is one or two 16-byte
-// records, so that one broadcast 128-bit shared load (two for boxes and
-// rays) fetches it whole; every thread of a warp reads the same record.
+// Records of the count, emit and slot kernels (B2 run_counts.cu, B3
+// group_emit.cu, B4 group_contacts.cu).  A prepared a-row or b-leaf is one
+// or two 16-byte records, so that one broadcast 128-bit shared load (two
+// for boxes and rays) fetches it whole; every thread of a warp reads the
+// same record.
 // Factors that depend on one side only are computed once per row or leaf
 // with the same rounded operation the predicate would apply per test:
 //   SPHERE      a, b = (x0, x1, x2, r)
@@ -336,8 +321,8 @@ __device__ __forceinline__ int warp_exclusive_scan_k(const int (&v)[K],
   return run;
 }
 
-// A team of the count and slot kernels: the threads that take one tile
-// pair together, G / k of them.  A team of one warp (tiles of 32, 64 and
+// A team of the count, emit and slot kernels: the threads that take one
+// tile pair together, G / k of them.  A team of one warp (tiles of 32, 64 and
 // 128) is a worker of its own, several to a block, and syncs as a warp; a
 // larger team is the whole block.  Teams take groups of up to 32 items in
 // turn from a counter in device memory, zeroed by the caller, so that the
@@ -469,31 +454,5 @@ inline int persistent_blocks(Kern kern, int threads, size_t shmem,
     default:                                           \
       return (int)cudaErrorInvalidValue;               \
   }
-
-// Block-wide exclusive prefix sum of one int per thread, in thread order.
-// blockDim.x is a multiple of 32; `sh` holds 32 ints.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* sh) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) sh[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nw ? sh[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += y;
-    }
-    if (lane < nw) sh[lane] = w;
-  }
-  __syncthreads();
-  return (warp > 0 ? sh[warp - 1] : 0) + x - v;
-}
 
 }  // namespace ibvh

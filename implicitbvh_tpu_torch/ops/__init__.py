@@ -1,15 +1,18 @@
 """Hand-written CUDA kernels of the tile engine and their plain versions."""
 
-from .compaction import finish_compact, tile_compact, tile_compact_plain
+from .compaction import (compact_flat, compact_flat_plain, finish_compact,
+                         tile_compact, tile_compact_plain)
 from .subtile import subtile_band_bits, subtile_band_bits_plain
-from .tile_contact import (run_live_pairs, tile_group_contacts,
+from .tile_contact import (emit_plan, emit_plan_plain, run_live_pairs,
+                           tile_group_contacts,
                            tile_group_contacts_plain,
                            tile_group_emit, tile_group_emit_plain,
                            tile_pair_contacts, tile_pair_contacts_plain,
                            tile_run_counts, tile_run_counts_plain)
 
 KERNELS = (subtile_band_bits, tile_run_counts, tile_group_emit,
-           tile_group_contacts, tile_compact, tile_pair_contacts)
+           tile_group_contacts, tile_compact, tile_pair_contacts,
+           compact_flat, emit_plan)
 
 
 def reset_launch_counts():
@@ -18,7 +21,8 @@ def reset_launch_counts():
         k.launches = 0
 
 
-__all__ = ["KERNELS", "finish_compact", "reset_launch_counts",
+__all__ = ["KERNELS", "compact_flat", "compact_flat_plain", "emit_plan",
+           "emit_plan_plain", "finish_compact", "reset_launch_counts",
            "run_live_pairs", "subtile_band_bits", "subtile_band_bits_plain",
            "tile_compact", "tile_compact_plain", "tile_group_contacts",
            "tile_group_contacts_plain", "tile_group_emit",

@@ -7,12 +7,14 @@ mega-tiles, each viewed as 128 rows of 128 lanes.  In mega-tile ``t`` the
 ``row_off[r] + s`` when that slot is below ``cap``, where ``row_off`` is the
 exclusive prefix of the uncapped row counts; ``counts[t]`` is the uncapped
 survivor total.  Slots that nothing writes hold 0.  ``finish_compact``
-flattens the padded slots into one list.
+flattens the padded slots into one list; ``compact_flat`` is the two in
+one call, the form the fallback's phase 1 uses.
 
-The kernel (``csrc/compact.cu``) is bound by bytes on the H100: one block
+The kernels (``csrc/compact.cu``) are bound by bytes on the H100: one block
 per mega-tile, one warp per row, ballots and popcounts for the row counts
 and in-row ranks, a block scan of the 128 row counts, then one write per
-kept survivor.
+kept survivor; ``compact_flat`` writes the survivors straight to their
+places in the flat lists.
 """
 
 from __future__ import annotations
@@ -123,3 +125,59 @@ def finish_compact(slots, counts, capacity: int):
                           device=counts.device)
         outs.append(out.scatter_(0, dst, s.reshape(-1))[:capacity])
     return outs, v.sum(dtype=torch.int32)
+
+
+def compact_flat_plain(mask, payloads, *, cap, row_cap, capacity):
+    """Plain PyTorch version of :func:`compact_flat`: the composition of
+    :func:`tile_compact_plain` and :func:`finish_compact`."""
+    slots, counts, overflow = tile_compact_plain(mask, payloads, cap=cap,
+                                                 row_cap=row_cap)
+    outs, total = finish_compact(slots, counts, capacity)
+    return tuple(outs), total, overflow
+
+
+def compact_flat(mask, payloads, *, cap, row_cap, capacity: int):
+    """:func:`tile_compact` and :func:`finish_compact` in one call.
+
+    Returns ``(lists, total, overflow)``: a pair of (capacity,) int32 lists,
+    one per payload, holding each mega-tile's first ``min(counts[t], cap)``
+    slots in mega-tile order and then slot order (a row over ``row_cap``
+    leaves zeros in its tile's range), zeros from the grand total on, and
+    nothing at or past ``capacity``; the 0-dim int32 grand total
+    ``sum(min(counts, cap))``, which may exceed ``capacity``; and the 0-dim
+    bool overflow flag of :func:`tile_compact`.  Equal, bit for bit, to
+    ``finish_compact(*tile_compact(...)[:2], capacity)`` and that flag.
+
+    On the H100 (``csrc/compact.cu``) a count pass gives each mega-tile's
+    count, and a write pass puts each kept survivor at its place in the
+    flat lists (the mega-tile's base summed in the block from the counts
+    before it) and zeroes the holes and the tail itself: one allocation and
+    two launches, no slot arrays.
+    """
+    payloads = tuple(payloads)
+    tiles = _check_compact(mask, payloads, cap, row_cap)
+    if capacity <= 0:
+        raise ValueError(f"need capacity > 0, got {capacity}")
+    if not _build.cuda_device(mask):
+        return compact_flat_plain(mask, payloads, cap=cap, row_cap=row_cap,
+                                  capacity=capacity)
+    P, I = _build.P, _build.I
+    fn = _build.kernel_fn("compact", "compact_flat_launch",
+                          [P] * 5 + [I] * 4 + [P])
+    dev = mask.device
+    # the two lists, then the per-tile counts and flags, the total and the
+    # overflow flag (a 0 or 1 int, read as a bool through its first byte)
+    buf = torch.empty(2 * capacity + 2 * tiles + 2, dtype=torch.int32,
+                      device=dev)
+    res = buf[2 * capacity:]
+    with torch.cuda.device(dev):
+        _build.launch(fn, "compact_flat", mask.data_ptr(),
+                      payloads[0].data_ptr(), payloads[1].data_ptr(),
+                      buf.data_ptr(), res.data_ptr(), tiles, cap, row_cap,
+                      capacity)
+    compact_flat.launches += 1
+    return ((buf[:capacity], buf[capacity:2 * capacity]), res[2 * tiles],
+            res[2 * tiles + 1:].view(torch.bool)[0])
+
+
+compact_flat.launches = 0

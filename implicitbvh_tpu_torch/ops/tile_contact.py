@@ -23,11 +23,11 @@ The predicates are explicitly rounded (no FMA), so the count and slot
 kernels are bound by the instruction rate: they run a persistent grid over
 the live tile pairs only, keep one side of each tile pair as 16-byte records
 in shared memory and k = 4, 2 or 1 leaves of the other per thread in
-registers, so that one broadcast load feeds k tests.  The emit kernel keeps
-the a-tile in shared memory and one b-leaf per thread.  Dead tiles and bands
-cost a branch, counts are reduced and scanned in the block, and contacts are
-written at scanned offsets, so none needs the TPU kernels' lane planes,
-cursors or one-hot compaction.
+registers, so that one broadcast load feeds k tests; the emit kernel does
+the same over the live entries that a one-block scan lists with their
+output offsets.  Dead tiles and bands cost a branch, counts are reduced and
+scanned in the team, and contacts are written at scanned offsets, so none
+needs the TPU kernels' lane planes, cursors or one-hot compaction.
 """
 
 from __future__ import annotations
@@ -273,6 +273,67 @@ def _emit_flags(total, row_over, CAP):
     return (total > CAP).int() | ((row_over[0] > 0).int() << 1)
 
 
+_PLAN_HEAD = 4   # the plan's header: total, flags, live entries, counter
+
+
+def emit_plan_plain(b_idx, nsteps, *, S_cap, CAP_PAIR):
+    """Plain PyTorch version of :func:`emit_plan` (entries and offsets past
+    the live count hold 0)."""
+    SW = b_idx.shape[0]
+    offs, total = _emit_offsets(b_idx, nsteps, S_cap, SW // S_cap, CAP_PAIR)
+    e = torch.arange(SW, device=b_idx.device)
+    live = (((b_idx >> 20) & 0xFF) > 0) & \
+        ((e // (SW // S_cap)) < nsteps.clamp(max=S_cap))
+    idx = live.nonzero().squeeze(1)
+    n = idx.shape[0]
+    entries = torch.zeros(SW, dtype=torch.int32, device=b_idx.device)
+    offsets = torch.zeros_like(entries)
+    entries[:n] = idx.int()
+    offsets[:n] = offs[idx]
+    return entries, offsets, total, live.sum(dtype=torch.int32)
+
+
+def emit_plan(b_idx, nsteps, *, S_cap, CAP_PAIR):
+    """The emit kernel's plan of an emit list (B3's first launch).
+
+    - ``b_idx``: (S_cap*W,) int32 emit entries (``cnt`` in bits 20-27).
+    - ``nsteps``: (1,) int32 live steps (read on the device).
+
+    Returns ``(entries, offsets, total, nlive)``: the first ``nlive`` of the
+    (S_cap*W,) int32 ``entries`` are the live entries (``cnt > 0`` in a step
+    below ``nsteps``) in order, and ``offsets`` their output offsets, the
+    exclusive prefix of ``min(cnt, CAP_PAIR)`` over the live entries (as
+    :func:`_emit_offsets`); ``total`` (0-dim int32) is its sum and
+    ``nlive`` (0-dim int32) the live count.  On the card the lists past
+    ``nlive`` are undefined.
+
+    On the H100 one block of ``csrc/group_emit.cu`` scans the live steps'
+    entries, 16 a thread per chunk; :func:`tile_group_emit` launches it
+    before its emit kernel in the same call.
+    """
+    dev = b_idx.device
+    _build.check(b_idx, "b_idx", torch.int32, (b_idx.shape[0],), dev)
+    _build.check(nsteps, "nsteps", torch.int32, (1,), dev)
+    SW = b_idx.shape[0]
+    if S_cap <= 0 or SW % S_cap or not 0 < CAP_PAIR <= 128:
+        raise ValueError(f"need S_cap dividing {SW} and 0 < CAP_PAIR <= 128")
+    if not _build.cuda_device(b_idx):
+        return emit_plan_plain(b_idx, nsteps, S_cap=S_cap, CAP_PAIR=CAP_PAIR)
+    P, I = _build.P, _build.I
+    fn = _build.kernel_fn("group_emit", "emit_plan_launch",
+                          [P] * 3 + [I] * 4 + [P])
+    plan = torch.empty(_PLAN_HEAD + 2 * SW, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.launch(fn, "emit_plan", b_idx.data_ptr(), nsteps.data_ptr(),
+                      plan.data_ptr(), S_cap, SW // S_cap, CAP_PAIR, 1)
+    emit_plan.launches += 1
+    pairs = plan[_PLAN_HEAD:].view(SW, 2)
+    return pairs[:, 0], pairs[:, 1], plan[0], plan[2]
+
+
+emit_plan.launches = 0
+
+
 def tile_group_emit_plain(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
                           mask_kind, ROW_CAP=4, CAP_PAIR=32, dedup=False,
                           CAP=1 << 17):
@@ -335,9 +396,14 @@ def tile_group_emit(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
 
     Replaces ``implicitbvh_tpu/ops/tile_contact.py:tile_group_emit``
     (``_group_emit_kernel``).  On the H100 it is bound by operations (the
-    leaf tests of the live pairs' live bands); ``csrc/group_emit.cu`` runs
-    one block per live pair and writes at offsets scanned from the exact
-    counts, in place of the TPU kernel's cursor and one-hot compaction.
+    leaf tests of the live pairs' live bands).  ``csrc/group_emit.cu``
+    lists the live entries with their offsets in one block
+    (:func:`emit_plan`), then the teams of a persistent grid take the
+    listed entries from a counter, test k b-columns per thread against each
+    a-row record of the team's a-tile in shared memory, and write each
+    column's first two contacts from registers (columns with more are
+    tested again); the grid zeroes the streams past the total, so the
+    outputs are one uninitialised allocation.
     """
     b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
     dev = a_fields.device
@@ -358,21 +424,20 @@ def tile_group_emit(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
     W = b_idx.shape[0] // S_cap
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("group_emit", "group_emit_launch",
-                          [P] * 9 + [I] * 10 + [P])
-    offs, total = _emit_offsets(b_idx, nsteps, S_cap, W, CAP_PAIR)
-    gi = torch.zeros(CAP, dtype=torch.int32, device=dev)
-    gj = torch.zeros(CAP, dtype=torch.int32, device=dev)
-    row_over = torch.zeros(1, dtype=torch.int32, device=dev)
+                          [P] * 6 + [I] * 10 + [P])
+    # gi, gj, then the plan: total, flags, live entries, work counter and
+    # the (entry, offset) list
+    out = torch.empty(2 * CAP + _PLAN_HEAD + 2 * b_idx.shape[0],
+                      dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _build.launch(fn, "group_emit", a_idx.data_ptr(), b_idx.data_ptr(),
-                      nsteps.data_ptr(), offs.data_ptr(),
-                      a_fields.data_ptr(), b_fields.data_ptr(),
-                      gi.data_ptr(), gj.data_ptr(), row_over.data_ptr(),
-                      S_cap, W, a_fields.shape[1], b_fields.shape[1],
+                      nsteps.data_ptr(), a_fields.data_ptr(),
+                      b_fields.data_ptr(), out.data_ptr(), S_cap, W,
+                      a_fields.shape[1], b_fields.shape[1],
                       a_fields.shape[2], _KIND[mask_kind], int(dedup),
                       ROW_CAP, CAP_PAIR, CAP)
     tile_group_emit.launches += 1
-    return gi, gj, total, _emit_flags(total, row_over, CAP)
+    return out[:CAP], out[CAP:2 * CAP], out[2 * CAP], out[2 * CAP + 1]
 
 
 tile_group_emit.launches = 0

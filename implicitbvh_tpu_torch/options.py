@@ -22,12 +22,23 @@ class BVHOptions:
     - ``capacity_growth``: factor by which the traversal wrappers grow an
       overflowing buffer before re-running.
     - ``min_capacity``: smallest contact-buffer capacity.
+    - ``block_size``, ``num_threads`` and the four ``min_*_per_thread``
+      fields: the reference's GPU block size and CPU threading knobs,
+      accepted as the JAX package accepts them (positive, else
+      ``ValueError``) and otherwise ignored: the kernels size their own
+      grids.
     """
 
     index_bits: int = 32
     morton: MortonAlgorithm = DefaultMortonAlgorithm(bits=32)
     capacity_growth: float = 2.0
     min_capacity: int = 64
+    block_size: int = 256
+    num_threads: int = 1
+    min_mortons_per_thread: int = 100
+    min_sorts_per_thread: int = 100
+    min_boundings_per_thread: int = 100
+    min_traversals_per_thread: int = 100
 
     def __post_init__(self):
         if self.index_bits == 64:
@@ -37,8 +48,13 @@ class BVHOptions:
             raise ValueError("index_bits must be 32 or 64")
         if self.capacity_growth <= 1.0:
             raise ValueError("capacity_growth must be > 1")
-        if self.min_capacity <= 0:
-            raise ValueError("min_capacity must be positive")
+        if self.min_capacity <= 0 or self.block_size <= 0:
+            raise ValueError("min_capacity and block_size must be positive")
+        for f in ("num_threads", "min_mortons_per_thread",
+                  "min_sorts_per_thread", "min_boundings_per_thread",
+                  "min_traversals_per_thread"):
+            if getattr(self, f) <= 0:
+                raise ValueError(f"{f} must be positive")
 
     @property
     def index_dtype(self):

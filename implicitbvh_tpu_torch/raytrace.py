@@ -4,9 +4,10 @@ Counterpart of ``implicitbvh_tpu/raytrace.py``.  ``traverse_rays`` validates
 its input and dispatches to the tile ray engine (``traverse/ray_tiles.py``,
 the default) or, with ``LVTTraversal()``, to the stackless leaf-vs-tree
 walk of ``traverse/walk.py`` with one lane per ray and ``isintersection``
-as the test (torch ops, no kernel; its loop syncs with the host).  The
+as the test (torch ops, no kernel; its loop syncs with the host);
+``DFSTraversal()`` takes the same walk, as in the JAX package.  The
 breadth-first variant is not ported: ``BFSTraversal()`` raises
-``NotImplementedError`` (ROADMAP A11).
+``NotImplementedError`` (ROADMAP A11a).
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from .build import BVH, Leaves
 from .options import DEFAULT_OPTIONS, BVHOptions
 from .traverse.lvt import _scan
 from .traverse.tiles import TileTraversal
-from .traverse.types import (BFSTraversal, BVHTraversal, LVTTraversal,
-                             TraversalAlgorithm)
+from .traverse.types import (BFSTraversal, BVHTraversal, DFSTraversal,
+                             LVTTraversal, TraversalAlgorithm)
 from .traverse.walk import stackless_walk
 from .volumes import isintersection
 
@@ -109,8 +110,9 @@ def traverse_rays(bvh: BVH, points, directions,
     With no ``alg`` the tile engine runs (``TileTraversal()``), on every
     device.  ``LVTTraversal()`` takes the stackless walk from
     ``start_level``, with a capacity of the hit count rounded up to a power
-    of two (or ``cache``'s when it has the room).  ``BFSTraversal()``
-    raises ``NotImplementedError`` (ROADMAP A11).
+    of two (or ``cache``'s when it has the room); ``DFSTraversal()`` takes
+    the same walk from ``start_level`` (the ray path has no DFS default).
+    ``BFSTraversal()`` raises ``NotImplementedError`` (ROADMAP A11a).
     """
     if alg is None:
         alg = TileTraversal()
@@ -130,9 +132,9 @@ def traverse_rays(bvh: BVH, points, directions,
                                    options=options)
     if isinstance(alg, BFSTraversal):
         raise NotImplementedError(
-            "BFSTraversal ray traversal is not ported (ROADMAP A11); use "
+            "BFSTraversal ray traversal is not ported (ROADMAP A11a); use "
             "TileTraversal() or LVTTraversal()")
-    if not isinstance(alg, LVTTraversal):
+    if not isinstance(alg, (LVTTraversal, DFSTraversal)):
         raise TypeError(f"unknown traversal algorithm {alg!r}")
     counts = rays_count(bvh, p, d, start_level, narrow)
     offsets, total = _scan(counts)

@@ -59,8 +59,9 @@ def _finish(total, out, offsets, start_level1, start_level2=0, num_checks=0):
 
 
 def _not_ported(alg):
+    item = "A11a" if isinstance(alg, BFSTraversal) else "A11b"
     return NotImplementedError(
-        f"{type(alg).__name__} is not ported (ROADMAP A11); use "
+        f"{type(alg).__name__} is not ported (ROADMAP {item}); use "
         "TileTraversal() or LVTTraversal()")
 
 
@@ -152,9 +153,11 @@ def _traverse_pair(bvh1: BVH, bvh2: BVH, alg: TraversalAlgorithm, *,
             _warn_start_level("start_level1/start_level2", 3)
         return traverse_tiles_pair(bvh1, bvh2, alg=alg, narrow=narrow,
                                    cache=cache, options=options)
-    if isinstance(alg, (BFSTraversal, DFSTraversal)):
+    if isinstance(alg, BFSTraversal):
         raise _not_ported(alg)
-    if not isinstance(alg, LVTTraversal):
+    # DFS is self-contact only: two trees take the leaf-vs-tree walk from
+    # DFS's deep default start levels, as in the JAX package
+    if not isinstance(alg, (LVTTraversal, DFSTraversal)):
         raise TypeError(f"unknown traversal algorithm {alg!r}")
 
     lanes, target, sl, flip = _lvt._lanes_and_target(

@@ -18,7 +18,7 @@ package:
   skip the emit kernel;
 - **pair-granularity fallback** (otherwise, which includes every capacity
   of 1024 or less and every ``pair_cap`` that slot-cap growth takes past
-  128): the compaction kernel (``ops/compaction.py``) lists the pairs with
+  128): the compaction (``ops/compaction.py:compact_flat``) lists the pairs with
   their 4-bit band masks, the list is sorted and grouped W b-tiles per
   a-tile, the slot kernel (``tile_group_contacts``) writes each pair's
   padded contact slots, and each output slot gathers its contact from
@@ -43,7 +43,7 @@ import torch
 
 from ..build import BVH
 from ..options import DEFAULT_OPTIONS, BVHOptions
-from ..ops.compaction import finish_compact, tile_compact
+from ..ops.compaction import compact_flat
 from ..ops.subtile import subtile_band_bits
 from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
                                 tile_group_emit, tile_run_counts)
@@ -343,10 +343,9 @@ def _phase1_tile_pairs(tiles, sub, P_cap: int, tiles_b=None):
     tii = (si * SS + k[:, None, None]).expand(SS, SS, SP_cap)
     tjj = (sj * SS + k[None, :, None]) | (bits_t << 16)
     cap_c = max(2048, P_cap // 116)
-    slots, counts, c_overflow = tile_compact(
+    (out_ti, out_tjb), npairs, c_overflow = compact_flat(
         (bits_t > 0).reshape(-1), (tii.reshape(-1), tjj.reshape(-1)),
-        cap=cap_c, row_cap=128)
-    (out_ti, out_tjb), npairs = finish_compact(slots, counts, P_cap)
+        cap=cap_c, row_cap=128, capacity=P_cap)
     p64 = (out_ti.long() << 16) | (out_tjb & 0xFFFF).long()
     packed = _wrap_int32(p64)
     npairs = torch.where(sp_overflow | c_overflow, P_cap + 1, npairs)

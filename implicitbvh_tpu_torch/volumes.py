@@ -127,6 +127,12 @@ def center_coords(v: Volume) -> Coords:
     return _map3(lambda lo, up: 0.5 * (lo + up), v.los, v.ups)
 
 
+def center(v: Volume) -> torch.Tensor:
+    """Geometric centres as an (..., 3) tensor (public convenience; internal
+    code uses :func:`center_coords`, the coordinate tuple)."""
+    return torch.stack(center_coords(v), dim=-1)
+
+
 def bbox_of_bsphere(a: BSphere) -> BBox:
     """Sphere -> enclosing box."""
     return BBox(tuple(c - a.r for c in a.xs), tuple(c + a.r for c in a.xs))

@@ -317,13 +317,54 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         tb.build(ts, options=tb.BVHOptions(morton=MortonAlgorithm()))
     bvh = tb.build(ts)
-    for alg in (tb.BFSTraversal(), tb.DFSTraversal()):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    for alg, item in ((tb.BFSTraversal(), "A11a"), (tb.DFSTraversal(), "A11b")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tb.traverse(bvh, alg)
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            tb.traverse(bvh, bvh, alg)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11a"):
+        tb.traverse(bvh, bvh, tb.BFSTraversal())
+    # DFS is self-contact only: two trees take the walk, as in the JAX
+    # package (tests/test_torch_walks.py holds its result against it)
+    dfs = tb.traverse(bvh, bvh, tb.DFSTraversal())
+    assert set(dfs.contacts_list()) == \
+        set(tb.traverse(bvh, bvh, tb.LVTTraversal()).contacts_list())
     with pytest.raises(TypeError):       # box leaves have no sphere nodes
         tb.build(tb.BBox(ts.xs, ts.xs), tb.BSphere)
+
+
+IGNORED_OPTIONS = ("block_size", "num_threads", "min_mortons_per_thread",
+                   "min_sorts_per_thread", "min_boundings_per_thread",
+                   "min_traversals_per_thread")
+
+
+@pytest.mark.parametrize("field", IGNORED_OPTIONS)
+def test_ignored_options_validate_as_in_jax(field):
+    """The reference's block size and threading knobs: the same defaults,
+    accepted when positive and refused with ``ValueError`` otherwise, by
+    both packages."""
+    assert getattr(tb.BVHOptions(), field) == getattr(jb.BVHOptions(), field)
+    for value in (0, -3):
+        with pytest.raises(ValueError, match=field):
+            jb.BVHOptions(**{field: value})
+        with pytest.raises(ValueError, match=field):
+            tb.BVHOptions(**{field: value})
+    opts = tb.BVHOptions(**{field: 7})
+    assert getattr(opts, field) == 7
+    ts = torch_spheres(triangles(40, 3))
+    assert torch.equal(tb.build(ts, options=opts).leaves.index,
+                       tb.build(ts).leaves.index)
+
+
+def test_center_and_bounding_volume_alias():
+    tri = triangles(50, 4)
+    js, ts = jax_spheres(tri), torch_spheres(tri)
+    assert np.array_equal(np.asarray(jb.center(js)), tb.center(ts).numpy())
+    jbox = jb.BBox(tuple(x - js.r for x in js.xs),
+                   tuple(x + js.r for x in js.xs))
+    tbox = tb.BBox(tuple(x - ts.r for x in ts.xs),
+                   tuple(x + ts.r for x in ts.xs))
+    assert tuple(tb.center(tbox).shape) == (50, 3)
+    assert np.array_equal(np.asarray(jb.center(jbox)), tb.center(tbox).numpy())
+    assert tb.BoundingVolume is tb.Leaves
 
 
 def test_device_rules():

@@ -158,7 +158,7 @@ def test_growth_into_the_fallback_matches_jax():
     assert tt.num_checks == jt.num_checks
 
 
-ROUTE_KERNELS = ("tile_compact", "tile_group_contacts", "tile_run_counts",
+ROUTE_KERNELS = ("compact_flat", "tile_group_contacts", "tile_run_counts",
                  "tile_group_emit")
 
 
@@ -189,7 +189,7 @@ def test_fallback_equals_two_phase(monkeypatch, bands):
             alg=tb.TileTraversal(tile=32, count_w=2, row_cap=16,
                                  pair_cap=pair_cap, bands=bands))
         res[pair_cap] = summary(out)
-        assert called == ({"tile_compact", "tile_group_contacts"}
+        assert called == ({"compact_flat", "tile_group_contacts"}
                           if pair_cap > 128 else
                           {"tile_run_counts", "tile_group_emit"})
     (c1, t1, o1, n1), (c2, t2, o2, n2) = res[32], res[256]
@@ -210,7 +210,7 @@ def test_readme_demo_default_options_takes_the_fallback(monkeypatch):
         tb.build(tb.BSphere(xs, rs, device="cpu")))
     assert t.contacts_list() == [(1, 2), (2, 3), (4, 5)]
     assert t.cache1.shape[0] == 64
-    assert called == {"tile_compact", "tile_group_contacts"}
+    assert called == {"compact_flat", "tile_group_contacts"}
 
 
 def test_growth_end_raises_naming_a11(monkeypatch):

@@ -1,8 +1,8 @@
 """The fallback route's kernels against the JAX package's Pallas kernels.
 
 The pair-granularity fallback of tile self-contact runs the band-bit kernel
-on 4 folded bands, the compaction kernel ``tile_compact`` and the slot
-kernel ``tile_group_contacts``; ``tile_pair_contacts`` is the slot kernel
+on 4 folded bands, the compaction ``compact_flat`` (``tile_compact`` and
+``finish_compact`` in one call) and the slot kernel ``tile_group_contacts``; ``tile_pair_contacts`` is the slot kernel
 over a packed pair list.  Each scene runs through the port's fallback on the
 CPU while a recorder keeps the kernel wrappers' arguments (there they take
 their plain PyTorch versions); the same arguments, as numpy arrays, go to
@@ -38,7 +38,7 @@ import implicitbvh_tpu_torch as tb
 from implicitbvh_tpu_torch import ops
 from implicitbvh_tpu_torch.traverse import tiles as ttiles
 
-RECORDED = ("subtile_band_bits", "tile_compact", "tile_group_contacts")
+RECORDED = ("subtile_band_bits", "compact_flat", "tile_group_contacts")
 
 
 def spheres(n, seed, scale):
@@ -146,7 +146,9 @@ def test_band_bits_plain_matches_pallas_folded(scene):
 def test_compact_plain_matches_pallas_on_path(scene):
     """B5 at the inputs the fallback's phase 1 gives it."""
     _, seen, _ = scene
-    (mask, payloads), kw = seen["tile_compact"]
+    (mask, payloads), kw = seen["compact_flat"]
+    capacity = kw["capacity"]
+    kw = {k: v for k, v in kw.items() if k != "capacity"}
     want_s, want_c, want_o = jax_compaction.tile_compact(
         j(mask), tuple(j(p).astype(jnp.float32) for p in payloads),
         interpret=True, **kw)
@@ -156,6 +158,13 @@ def test_compact_plain_matches_pallas_on_path(scene):
         assert np.array_equal(np.asarray(w).astype(np.int32), g.numpy())
     assert np.array_equal(np.asarray(want_c), got_c.numpy())
     assert bool(want_o) == bool(got_o) is False
+    # the path's whole compaction: finish_compact of the Pallas slots
+    want_l, want_t = jax_compaction.finish_compact(want_s, want_c, capacity)
+    got_l, got_t, got_o = ops.compact_flat_plain(mask, payloads,
+                                                 capacity=capacity, **kw)
+    assert int(want_t) == int(got_t) and bool(got_o) is False
+    for w, g in zip(want_l, got_l):
+        assert np.array_equal(np.asarray(w).astype(np.int32), g.numpy())
 
 
 def test_group_contacts_plain_matches_pallas(scene):
@@ -309,8 +318,14 @@ def test_fallback_kernels_match_plain_on_card(scene):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     _, seen, bvh = scene
-    args, kw = seen["tile_compact"]
+    args, kw = seen["compact_flat"]
     args = _on_card(args)
+    for g, w in zip(ops.compact_flat(*args, **kw),
+                    ops.compact_flat_plain(*args, **kw)):
+        for x, y in zip(g if isinstance(g, tuple) else (g,),
+                        w if isinstance(w, tuple) else (w,)):
+            assert torch.equal(x, y)
+    kw = {k: v for k, v in kw.items() if k != "capacity"}
     for g, w in zip(ops.tile_compact(*args, **kw),
                     ops.tile_compact_plain(*args, **kw)):
         for x, y in zip(g if isinstance(g, tuple) else (g,),

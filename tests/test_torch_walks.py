@@ -157,6 +157,27 @@ def test_walk_pair_matches_jax(name):
     assert int(ctot) == int(ttot) and torch.equal(cout, tout)
 
 
+@pytest.mark.parametrize("name", ["50x70", "bsphere_nodes_flip"])
+def test_dfs_pair_takes_the_walk_as_jax(name):
+    """Two trees under ``DFSTraversal()`` walk from DFS's deep default start
+    levels in both packages: the same rows in order and the same levels."""
+    n1, s1, n2, s2, kind, _, _ = PAIR[name]
+    xs1, rs1 = spheres(n1, s1)
+    xs2, rs2 = spheres(n2, s2)
+    j1, t1 = build_both(xs1, rs1, node_kind=kind)
+    j2, t2 = build_both(xs2, rs2, node_kind=kind)
+    jt = jtraverse(j1, j2, jb.DFSTraversal())
+    tt = tb.traverse(t1, t2, tb.DFSTraversal())
+    assert tt.num_contacts == int(jt.num_contacts) > 0
+    assert eq(jt.cache1, tt.cache1) and eq(jt.cache2, tt.cache2)
+    assert (tt.start_level1, tt.start_level2) == \
+        (jt.start_level1, jt.start_level2) == \
+        (tb.default_start_level(t1, tb.DFSTraversal()),
+         tb.default_start_level(t2, tb.DFSTraversal()))
+    assert tt.start_level1 > 1
+    assert set(tt.contacts_list()) == brute_force_pair(xs1, rs1, xs2, rs2)
+
+
 def test_pair_contact_order_is_tree_order():
     xs1, rs1 = np.array([[0, 0, 0.0]], np.float32), np.array([1.0], np.float32)
     xs2 = np.array([[0, 0, 0.5], [9, 9, 9.0]], np.float32)
@@ -284,6 +305,26 @@ def test_ray_walk_matches_jax(kind):
     assert tn.cache1.shape[0] == tt.cache1.shape[0]
     n = tn.num_contacts
     assert n == int(jn.num_contacts) and eq(jn.cache1[:n], tn.cache1[:n])
+
+
+def test_dfs_rays_take_the_walk_as_jax():
+    """Rays under ``DFSTraversal()`` walk from the caller's start level, as
+    ``LVTTraversal()`` does, in both packages (the ray path has no DFS
+    default: level 1)."""
+    xs, rs = spheres(200, 5, 6.0)
+    rng = np.random.default_rng(6)
+    p = (rng.random((3, 77)) * 6.0).astype(np.float32)
+    d = (rng.random((3, 77)) - 0.5).astype(np.float32)
+    jbvh, tbvh = build_both(xs, rs)
+    for sl in (None, 3):
+        kw = {} if sl is None else {"start_level": sl}
+        jt = jray.traverse_rays(jbvh, p, d, jb.DFSTraversal(), **kw)
+        tt = tb.traverse_rays(tbvh, p, d, tb.DFSTraversal(), **kw)
+        lvt = tb.traverse_rays(tbvh, p, d, tb.LVTTraversal(), **kw)
+        assert tt.num_contacts == int(jt.num_contacts) > 0
+        assert eq(jt.cache1, tt.cache1) and eq(jt.cache2, tt.cache2)
+        assert tt.start_level1 == jt.start_level1 == (sl or 1)
+        assert torch.equal(tt.cache1, lvt.cache1)
 
 
 def test_walk_counts_its_steps_and_syncs():
