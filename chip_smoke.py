@@ -13,8 +13,10 @@ pair-granularity fallback (B1, the whole compaction ``compact_flat``: B5's
 count pass and its flat write pass, B4 grouped slots), which small
 capacities and grown slot caps take; both routes of the batch ray query (two-phase: B2
 with a ray mask and moment words, the moment decode, B3 with a ray mask;
-fallback: B4 with a ray mask); the public ``traverse`` dispatch; and the
-leaf-vs-tree walks (torch ops), where growth past the slot caps ends.  B6
+fallback: B4 with a ray mask); the public ``traverse`` dispatch; the
+leaf-vs-tree walks (torch ops), where growth past the slot caps ends; and
+breadth-first traversal (self, two trees, rays) and depth-first
+self-contact (torch ops).  B6
 (per-pair slots of a packed pair list) and ``tile_compact`` (B5's padded
 slots, which ``compact_flat`` replaces on the path) are on no path and are
 held against their plain versions at the path's inputs only.
@@ -112,6 +114,19 @@ held against their plain versions at the path's inputs only.
     ``tile_compact`` + ``finish_compact`` in one call beside them; B2, B3
     and B4 also at the bench scene's inputs with ``nsteps`` set to 0 (the
     cost of the grid with no live step).
+16. runs breadth-first traversal (torch ops, no kernel) on the card:
+    ``traverse(bvh, BFSTraversal())`` at the bench scene (the two-phase
+    route's set), ``traverse(bvh1, bvh2, BFSTraversal())`` at config 4's
+    scene (the brute force's set) and at the full-width pair scene (phase
+    13's set), and ``traverse_rays(..., BFSTraversal())`` at the full-width
+    ray scene (the brute force's set); each wrapper timed (CUDA events,
+    median of 7) with its growth tries and peak memory, and each
+    ``bfs_*_fixed`` run once more at the wrapper's final capacity under the
+    sync check: overflow 0, the same total and ``num_checks``;
+17. runs depth-first self-contact (torch ops, one end test per 32 steps)
+    on the ray scene's 2^18-leaf BVH against the tile engine's set there,
+    timed once with its loop steps and host syncs, and, if that took less
+    than a minute, at the bench scene (the two-phase route's set).
 
 Each row's bound is printed with both of its terms (bytes and operations)
 and with the instruction floor of its operations (twice the operations
@@ -247,6 +262,7 @@ def main() -> int:
     from implicitbvh_tpu_torch.ops import _build
     from implicitbvh_tpu_torch.traverse import ray_tiles, tiles
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}")
@@ -1319,26 +1335,36 @@ def main() -> int:
             b = nbytes(*ins) + 4 * counts.numel() + 4 + 2 * 4 * lanes
         return b / HBM_BYTES_PER_S * 1e3, ops_n / FP32_OPS_PER_S * 1e3
 
-    def device_ms(fn, names, reps=7):
+    def device_ms(fn, names, reps=7, tries=3):
         """The device time per call of ``fn`` of the CUDA kernels whose
         names hold one of ``names``, from the profiler's
         ``key_averages()``: the kernels' own time, without the wrapper's
-        other work."""
+        other work.  The profiler now and then loses a kernel's records: a
+        profile that did not record each of ``names`` at least once per
+        call is taken again, up to ``tries`` times; after that the time is
+        None (not measured)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+        for _ in range(tries):
+            fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and any(n in e.key for n in names))
-        if not us:
-            raise RuntimeError(f"the profiler recorded no time of {names}")
-        return us / reps / 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and any(n in e.key for n in names)]
+            if all(sum(e.count for e in ev if n in e.key) >= reps
+                   for n in names):
+                return sum(e.self_device_time_total for e in ev) / reps / 1e3
+        log(f"the profiler lost records of {names} in {tries} profiles: "
+            "their device time is not measured")
+        return None
+
+    def fmt_ms(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
 
     launches = dict(launches_fb)
     launches.update({n: launches_2p[n] for n in two_phase_kernels})
@@ -1411,7 +1437,7 @@ def main() -> int:
                 *ops.tile_compact(*args, **tc_kw)[:2], M))
             log(f"time: {row} like for like (capacity = the mask's "
                 f"length {M}, the lists equal torch.masked_select's): "
-                f"compact_flat {flat_ms:.4f} ms (device {flat_dev:.4f} ms), "
+                f"compact_flat {flat_ms:.4f} ms (device {fmt_ms(flat_dev)}), "
                 f"tile_compact + finish_compact {both_ms:.4f} ms, "
                 f"torch.masked_select {lib_ms:.4f} ms [{card}]")
         log(f"time: {row} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
@@ -1422,7 +1448,11 @@ def main() -> int:
             f"[{card}]")
         d_ms = device_ms(lambda: wrapper(*args, **kw), device_kernel[name])
         log(f"time: {row} {' + '.join(device_kernel[name])} on the device "
-            f"(profiler, mean of 7 calls) {d_ms:.4f} ms [{card}]")
+            f"(profiler, mean of 7 calls) {fmt_ms(d_ms)} [{card}]")
+        if name == "subtile_band_bits":
+            log(f"{row}: {int(args[4])} live slots of SP_cap "
+                f"{args[2].shape[0]}, NB {args[0].shape[2]}, Ta "
+                f"{args[0].shape[1]}, Tb {args[1].shape[1]}")
         if k < len(kernels) and name in ("tile_run_counts", "tile_group_emit",
                                          "tile_group_contacts"):
             # the dead grid: the same inputs with no live step
@@ -1438,6 +1468,119 @@ def main() -> int:
                      "bound_ms": b_ms, "bound_by": b_by,
                      "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
                      "library_ms": lib_ms})
+
+    # 16. breadth-first traversal on the card (torch ops, no kernel): the
+    # sets of the tile engine and the brute forces, no host sync in the
+    # bfs_*_fixed functions at the wrapper's final capacity
+    from implicitbvh_tpu_torch.traverse import bfs, dfs
+    t_new = time.perf_counter()
+
+    def run_bfs(label, query, fixed, keys_of, want):
+        """``query()`` (a wrapper with growth) timed once, its tries and
+        peak memory; its key set against ``want``; ``fixed(capacity)``
+        under the sync check at the final capacity, overflow 0, the same
+        total; then the wrapper's median of 7 (CUDA events)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bfs._run_with_growth.tries = 0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = query()
+        torch.cuda.synchronize()
+        once = (time.perf_counter() - t0) * 1e3
+        tries = bfs._run_with_growth.tries
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if out.cache1.device.type != "cuda" or not torch.equal(
+                keys_of(out.num_contacts, out.cache1), want):
+            raise AssertionError(f"BFS, {label}: the set differs")
+        cap = out.cache1.shape[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            total, _, checks, overflow = fixed(cap)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if int(overflow) != 0 or int(total) != out.num_contacts or \
+                int(checks) != out.num_checks:
+            raise AssertionError(f"BFS, {label}: the fixed call at capacity "
+                                 f"{cap} differs from the wrapper's")
+        ms = time_ms(query)
+        log(f"time: BFS (torch ops, no kernel), {label}: {ms:.4f} ms "
+            f"(median of 7), {once:.1f} ms the first call; "
+            f"{out.num_contacts} contacts, num_checks {out.num_checks}, "
+            f"{tries} growth tries to capacity {cap}, peak memory "
+            f"{peak:.3f} GiB, kernel launches "
+            f"{sum(launch_counts().values())}; the fixed call at that "
+            f"capacity: overflow 0, no host sync [{card}]")
+
+    sl = ib.default_start_level(bvh, ib.BFSTraversal())
+    run_bfs(f"self-contact, {N_BENCH} leaves, start level {sl}",
+            lambda: ib.traverse(bvh, ib.BFSTraversal()),
+            lambda c: bfs.bfs_single_fixed(bvh, sl, c),
+            lambda n, c: check_contacts(n, c, 0, spheres, "BFS"), keys_2p)
+    for (b1, b2), (n1, n2), want, label in (
+            (c4_bvh, N_PAIR4, keys_c4, "config 4's pair scene"),
+            ((bvh, bvh2), (N_BENCH, N_BODY2), keys_union,
+             "the full-width pair scene")):
+        sl1 = ib.default_start_level(b1, ib.BFSTraversal())
+        sl2 = ib.default_start_level(b2, ib.BFSTraversal())
+        run_bfs(f"{label}, {n1} x {n2} leaves, start levels {sl1}, {sl2}",
+                lambda: ib.traverse(b1, b2, ib.BFSTraversal()),
+                lambda c: bfs.bfs_pair_fixed(b1, b2, sl1, sl2, c),
+                lambda n, c: pair_keys(n, c, 0, n1, n2, "BFS pair"), want)
+    run_bfs(f"the full-width ray scene, {N_RAYS} rays x {N_RAY_TRIS} leaves, "
+            "start level 1",
+            lambda: ib.traverse_rays(ray_bvh, rp, rd, ib.BFSTraversal()),
+            lambda c: bfs.bfs_rays_fixed(ray_bvh, tuple(rp), tuple(rd), 1, c),
+            lambda n, c: hit_keys(n, c, 0, N_RAY_TRIS, N_RAYS, "BFS rays"),
+            keys_bf)
+    log(f"BFS: self-contact, both pair scenes and the ray scene give the "
+        f"sets above ({TPU_BENCH_CONTACTS} contacts, {TPU_PAIR4_CONTACTS} and "
+        f"{keys_union.numel()} pairs, {TPU_RAY_HITS} hits)")
+    t_bfs = time.perf_counter() - t_new
+
+    # 17. depth-first self-contact on the card (torch ops, one end test per
+    # 32 steps): the tile engine's set on the ray scene's BVH, then at 1M
+    # when that took less than a minute
+    def run_dfs(label, target, sph, want):
+        torch.cuda.synchronize()
+        dfs.dfs_single_fixed.steps = dfs.dfs_single_fixed.syncs = 0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = ib.traverse(target, ib.DFSTraversal())
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if out.cache1.device.type != "cuda" or not torch.equal(
+                check_contacts(out.num_contacts, out.cache1, 0, sph,
+                               f"DFS, {label}"), want):
+            raise AssertionError(f"DFS, {label}: the set differs from the "
+                                 "tile engine's")
+        log(f"time: DFS (torch ops, no kernel), {label}: {sec:.3f} s once, "
+            f"{dfs.dfs_single_fixed.steps} loop steps and "
+            f"{dfs.dfs_single_fixed.syncs} end tests (host syncs) over both "
+            f"passes, {out.num_contacts} contacts (the tile engine's set), "
+            f"kernel launches {sum(launch_counts().values())} [{card}]")
+        return sec
+
+    t_dfs0 = time.perf_counter()
+    tile_ray_self = ib.traverse(ray_bvh, ib.TileTraversal())
+    keys_ray_self = check_contacts(tile_ray_self.num_contacts,
+                                   tile_ray_self.cache1, 0, ray_spheres,
+                                   "tile self-contact, ray scene")
+    del tile_ray_self
+    sec = run_dfs(f"self-contact, {N_RAY_TRIS} leaves, start level "
+                  f"{ib.default_start_level(ray_bvh, ib.DFSTraversal())}",
+                  ray_bvh, ray_spheres, keys_ray_self)
+    if sec < 60:
+        run_dfs(f"self-contact, {N_BENCH} leaves, start level "
+                f"{ib.default_start_level(bvh, ib.DFSTraversal())}",
+                bvh, spheres, keys_2p)
+    else:
+        log(f"DFS at {N_BENCH} leaves not run: {N_RAY_TRIS} leaves took "
+            f"{sec:.1f} s, past the minute allowed")
+    t_dfs = time.perf_counter() - t_dfs0
+    log(f"time: phases 16 (BFS) {t_bfs:.1f} s and 17 (DFS) {t_dfs:.1f} s; "
+        f"the script so far {time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -7,9 +7,9 @@ Entry points run on CUDA unless the caller passes CPU tensors or
 version.  Ported: triangles -> bounding spheres or boxes -> ``build`` (BBox
 or BSphere nodes) -> ``traverse(bvh)`` self-contact, ``traverse(bvh1,
 bvh2)`` two-tree contact and ``traverse_rays`` batch ray queries, each
-through the tile engine (both routes) or the leaf-vs-tree walk.  BFS
-traversal, DFS self-contact, 64-bit indices and the extended Morton order
-are not.
+through the tile engine (both routes), the leaf-vs-tree walk or
+breadth-first traversal, and self-contact also depth-first.  64-bit
+indices and the extended Morton order are not.
 """
 
 from .build import (BVH, BoundingVolume, Leaves, build, compute_build_level,

@@ -5,8 +5,8 @@ Replaces ``implicitbvh_tpu/ops/subtile.py:subtile_band_bits``
 for a-tile ``si[p]*32+i`` and b-tile ``sj[p]*32+j``, an NB-bit word whose
 bit ``r`` is set iff sub-band ``r`` of the a-tile overlaps the b-tile's
 AABB.  The count kernel skips the dead bands, and ``bits > 0`` is the pair
-filter.  The kernel (``csrc/band_bits.cu``) is bound by bytes on the H100;
-it stages both supertiles' bounds in shared memory once per slot.
+filter.  The kernel (``csrc/band_bits.cu``) is bound by bytes on the H100:
+a persistent grid of warps, one slot per warp, 16-byte stores.
 """
 
 from __future__ import annotations
@@ -55,8 +55,9 @@ def subtile_band_bits(sub, tiles, si, sj, nsp, *, triangle=True):
 
     Replaces ``implicitbvh_tpu/ops/subtile.py:subtile_band_bits``
     (``_bits_kernel``).  On the H100 it is bound by bytes;
-    ``csrc/band_bits.cu`` stages each slot's bounds in shared memory once
-    and writes only the 32 live columns of each row.
+    ``csrc/band_bits.cu`` runs a persistent grid of warps, one slot per
+    warp, each lane storing 4 columns of a row as one ``int4``, and writes
+    only the 32 live columns of each row.
     """
     dev = sub.device
     _build.check(sub, "sub", torch.float32)

@@ -5,21 +5,20 @@ its input and dispatches to the tile ray engine (``traverse/ray_tiles.py``,
 the default) or, with ``LVTTraversal()``, to the stackless leaf-vs-tree
 walk of ``traverse/walk.py`` with one lane per ray and ``isintersection``
 as the test (torch ops, no kernel; its loop syncs with the host);
-``DFSTraversal()`` takes the same walk, as in the JAX package.  The
-breadth-first variant is not ported: ``BFSTraversal()`` raises
-``NotImplementedError`` (ROADMAP A11a).
+``DFSTraversal()`` takes the same walk, as in the JAX package; with
+``BFSTraversal()`` the node-ray frontier of ``traverse/bfs.py``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from .build import BVH, Leaves
 from .options import DEFAULT_OPTIONS, BVHOptions
-from .traverse.lvt import _scan
+from .traverse.bfs import traverse_rays_bfs
+from .traverse.lvt import _round_capacity, _scan
 from .traverse.tiles import TileTraversal
 from .traverse.types import (BFSTraversal, BVHTraversal, DFSTraversal,
                              LVTTraversal, TraversalAlgorithm)
@@ -111,8 +110,9 @@ def traverse_rays(bvh: BVH, points, directions,
     device.  ``LVTTraversal()`` takes the stackless walk from
     ``start_level``, with a capacity of the hit count rounded up to a power
     of two (or ``cache``'s when it has the room); ``DFSTraversal()`` takes
-    the same walk from ``start_level`` (the ray path has no DFS default).
-    ``BFSTraversal()`` raises ``NotImplementedError`` (ROADMAP A11a).
+    the same walk from ``start_level`` (the ray path has no DFS default);
+    ``BFSTraversal()`` takes the breadth-first node-ray frontier from
+    ``start_level``, with capacity growth.
     """
     if alg is None:
         alg = TileTraversal()
@@ -123,6 +123,9 @@ def traverse_rays(bvh: BVH, points, directions,
         z = torch.zeros((0,), dtype=torch.int32, device=bvh.device)
         return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z,
                             start_level1=start_level)
+    if isinstance(alg, BFSTraversal):
+        return traverse_rays_bfs(bvh, p, d, start_level=start_level,
+                                 narrow=narrow, options=options)
     if isinstance(alg, TileTraversal):
         from .traverse.ray_tiles import traverse_rays_tiles
         # row_cap=4 is the self-contact default; rays want 8
@@ -130,21 +133,12 @@ def traverse_rays(bvh: BVH, points, directions,
         return traverse_rays_tiles(bvh, points, directions, alg=ralg,
                                    narrow=narrow, cache=cache,
                                    options=options)
-    if isinstance(alg, BFSTraversal):
-        raise NotImplementedError(
-            "BFSTraversal ray traversal is not ported (ROADMAP A11a); use "
-            "TileTraversal() or LVTTraversal()")
     if not isinstance(alg, (LVTTraversal, DFSTraversal)):
         raise TypeError(f"unknown traversal algorithm {alg!r}")
     counts = rays_count(bvh, p, d, start_level, narrow)
     offsets, total = _scan(counts)
     total = int(total)
-    need = max(total, options.min_capacity)
-    if cache is not None and cache.cache1.dim() == 2 \
-            and cache.cache1.shape[0] >= need:
-        capacity = cache.cache1.shape[0]
-    else:
-        capacity = 1 << math.ceil(math.log2(need))
+    capacity = _round_capacity(total, options, cache)
     out = rays_write(bvh, p, d, offsets, start_level, capacity, narrow)
     return BVHTraversal(num_contacts=total, cache1=out, cache2=offsets,
                         start_level1=start_level)

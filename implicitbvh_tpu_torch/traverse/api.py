@@ -9,13 +9,14 @@ with a fixed capacity use the ``*_fixed`` functions.
 
 from __future__ import annotations
 
-import math
 import warnings
 from typing import Optional
 
 from ..build import BVH
 from ..options import DEFAULT_OPTIONS, BVHOptions
 from . import lvt as _lvt
+from .bfs import traverse_bfs_pair, traverse_bfs_single
+from .dfs import traverse_dfs_single
 from .tiles import TileTraversal, traverse_tiles, traverse_tiles_pair
 from .types import (BFSTraversal, BVHTraversal, DFSTraversal, LVTTraversal,
                     TraversalAlgorithm)
@@ -28,17 +29,6 @@ def default_start_level(bvh: BVH,
     if isinstance(alg, (BFSTraversal, DFSTraversal)):
         return max(bvh.tree.levels // 2, bvh.built_level)
     return max(1, bvh.built_level)
-
-
-def _round_capacity(total: int, options: BVHOptions,
-                    cache: Optional[BVHTraversal] = None) -> int:
-    """Round a required size up to a power of two; a previous result's
-    capacity is taken as it is when it has the room."""
-    need = max(int(total), options.min_capacity)
-    if cache is not None and cache.cache1.dim() == 2 \
-            and cache.cache1.shape[0] >= need:
-        return cache.cache1.shape[0]
-    return 1 << math.ceil(math.log2(need))
 
 
 def _default_algorithm(*bvhs: BVH) -> TraversalAlgorithm:
@@ -58,13 +48,6 @@ def _finish(total, out, offsets, start_level1, start_level2=0, num_checks=0):
         num_checks=num_checks)
 
 
-def _not_ported(alg):
-    item = "A11a" if isinstance(alg, BFSTraversal) else "A11b"
-    return NotImplementedError(
-        f"{type(alg).__name__} is not ported (ROADMAP {item}); use "
-        "TileTraversal() or LVTTraversal()")
-
-
 def _warn_start_level(names: str, stacklevel: int):
     warnings.warn(
         f"{names} has no effect on the tile engine (it does not walk the "
@@ -81,8 +64,9 @@ def traverse(bvh: BVH, *args,
              options: BVHOptions = DEFAULT_OPTIONS) -> BVHTraversal:
     """Contact detection: ``traverse(bvh)`` for self-contact or
     ``traverse(bvh1, bvh2)`` for two-tree contact, with an optional
-    algorithm among the positional arguments (``TileTraversal()`` or
-    ``LVTTraversal()``; the default follows the device, see
+    algorithm among the positional arguments (``TileTraversal()``,
+    ``LVTTraversal()``, ``BFSTraversal()`` or, for self-contact,
+    ``DFSTraversal()``; the default follows the device, see
     :func:`_default_algorithm`).
 
     Returns a :class:`BVHTraversal` whose ``contacts`` are 1-based
@@ -90,8 +74,8 @@ def traverse(bvh: BVH, *args,
     ``(index in bvh1, index in bvh2)`` for two trees.  It runs on the BVHs'
     device.
 
-    The start levels seed the tree walk.  The tile engine walks no tree,
-    so giving it one emits a ``UserWarning``.
+    The start levels seed the tree-walking algorithms (LVT, BFS, DFS).  The
+    tile engine walks no tree, so giving it one emits a ``UserWarning``.
     """
     bvh2: Optional[BVH] = None
     alg: Optional[TraversalAlgorithm] = None
@@ -119,8 +103,14 @@ def traverse(bvh: BVH, *args,
 
     if bvh.tree.real_nodes <= 1:
         return _lvt._empty_traversal(bvh, start_level)
-    if isinstance(alg, (BFSTraversal, DFSTraversal)):
-        raise _not_ported(alg)
+    if isinstance(alg, BFSTraversal):
+        return traverse_bfs_single(bvh, start_level=start_level,
+                                   narrow=narrow, cache=cache,
+                                   options=options)
+    if isinstance(alg, DFSTraversal):
+        return traverse_dfs_single(bvh, start_level=start_level,
+                                   narrow=narrow, cache=cache,
+                                   options=options)
     if isinstance(alg, TileTraversal):
         if explicit_start:
             _warn_start_level("start_level", 2)
@@ -132,7 +122,7 @@ def traverse(bvh: BVH, *args,
     counts = _lvt.lvt_count_single(bvh, start_level, narrow)
     offsets, total = _lvt._scan(counts)
     total = int(total)
-    capacity = _round_capacity(total, options, cache)
+    capacity = _lvt._round_capacity(total, options, cache)
     out = _lvt.lvt_write_single(bvh, offsets, start_level, capacity, narrow)
     return _finish(total, out, offsets, start_level)
 
@@ -154,7 +144,9 @@ def _traverse_pair(bvh1: BVH, bvh2: BVH, alg: TraversalAlgorithm, *,
         return traverse_tiles_pair(bvh1, bvh2, alg=alg, narrow=narrow,
                                    cache=cache, options=options)
     if isinstance(alg, BFSTraversal):
-        raise _not_ported(alg)
+        return traverse_bfs_pair(bvh1, bvh2, start_level1=start_level1,
+                                 start_level2=start_level2, narrow=narrow,
+                                 cache=cache, options=options)
     # DFS is self-contact only: two trees take the leaf-vs-tree walk from
     # DFS's deep default start levels, as in the JAX package
     if not isinstance(alg, (LVTTraversal, DFSTraversal)):
@@ -165,7 +157,7 @@ def _traverse_pair(bvh1: BVH, bvh2: BVH, alg: TraversalAlgorithm, *,
     counts = _lvt.lvt_count_pair(lanes, target, sl, narrow, flip)
     offsets, total = _lvt._scan(counts)
     total = int(total)
-    capacity = _round_capacity(total, options, cache)
+    capacity = _lvt._round_capacity(total, options, cache)
     out = _lvt.lvt_write_pair(lanes, target, offsets, sl, capacity, narrow,
                               flip)
     return _finish(total, out, offsets, start_level1, start_level2)

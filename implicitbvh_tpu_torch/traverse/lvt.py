@@ -9,11 +9,13 @@ sync with the host to end the walk's loop (see ``walk.py``).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from ..build import BVH, Leaves
+from ..options import BVHOptions
 from ..volumes import convert_volume, iscontact
 from .types import BVHTraversal
 from .walk import stackless_walk
@@ -27,6 +29,17 @@ def _empty_traversal(bvh: BVH, start_level: int, start_level2: int = 0):
     z = torch.zeros((0,), dtype=bvh.skips.dtype, device=bvh.device)
     return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z,
                         start_level1=start_level, start_level2=start_level2)
+
+
+def _round_capacity(total: int, options: BVHOptions,
+                    cache: Optional[BVHTraversal] = None) -> int:
+    """Round a required size up to a power of two; a previous result's
+    capacity is taken as it is when it has the room."""
+    need = max(int(total), options.min_capacity)
+    if cache is not None and cache.cache1.dim() == 2 \
+            and cache.cache1.shape[0] >= need:
+        return cache.cache1.shape[0]
+    return 1 << math.ceil(math.log2(need))
 
 
 def _scan(counts):

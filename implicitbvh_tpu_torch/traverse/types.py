@@ -16,17 +16,17 @@ class TraversalAlgorithm:
 
 @dataclasses.dataclass(frozen=True)
 class BFSTraversal(TraversalAlgorithm):
-    """Simultaneous breadth-first traversal.  Not ported (ROADMAP A11a):
-    entry points given one raise ``NotImplementedError``."""
+    """Simultaneous breadth-first traversal of the pair tree (self-contact,
+    two trees, rays): a frontier of static capacity, compacted level by
+    level, grown on overflow (``traverse/bfs.py``)."""
 
 
 @dataclasses.dataclass(frozen=True)
 class DFSTraversal(TraversalAlgorithm):
-    """Depth-first traversal of the pair tree (the JAX package's lives in
-    ``traverse/dfs.py``).  Self-contact with it is not ported (ROADMAP
-    A11b) and raises ``NotImplementedError``; as in the JAX package, two
-    trees and rays given one take the leaf-vs-tree walk (two trees from
-    DFS's deep default start levels)."""
+    """Depth-first traversal of the pair tree, self-contact only
+    (``traverse/dfs.py``; the JAX package defines this class there).  As in
+    the JAX package, two trees and rays given one take the leaf-vs-tree
+    walk (two trees from DFS's deep default start levels)."""
 
 
 @dataclasses.dataclass(frozen=True)

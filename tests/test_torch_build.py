@@ -309,7 +309,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_unported_options_raise():
-    """What is left unported raises and names its ROADMAP item."""
+    """What is left unported raises and names its ROADMAP item; BFS (self
+    and two trees) and DFS self-contact, which used to raise, return the
+    leaf-vs-tree walk's set (tests/test_torch_bfs.py and test_torch_dfs.py
+    hold them against the JAX package)."""
     from implicitbvh_tpu_torch.morton import MortonAlgorithm
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         tb.BVHOptions(index_bits=64)
@@ -317,11 +320,11 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         tb.build(ts, options=tb.BVHOptions(morton=MortonAlgorithm()))
     bvh = tb.build(ts)
-    for alg, item in ((tb.BFSTraversal(), "A11a"), (tb.DFSTraversal(), "A11b")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tb.traverse(bvh, alg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11a"):
-        tb.traverse(bvh, bvh, tb.BFSTraversal())
+    lvt_self = set(tb.traverse(bvh, tb.LVTTraversal()).contacts_list())
+    for alg in (tb.BFSTraversal(), tb.DFSTraversal()):
+        assert set(tb.traverse(bvh, alg).contacts_list()) == lvt_self
+    assert set(tb.traverse(bvh, bvh, tb.BFSTraversal()).contacts_list()) == \
+        set(tb.traverse(bvh, bvh, tb.LVTTraversal()).contacts_list())
     # DFS is self-contact only: two trees take the walk, as in the JAX
     # package (tests/test_torch_walks.py holds its result against it)
     dfs = tb.traverse(bvh, bvh, tb.DFSTraversal())

@@ -114,7 +114,8 @@ def test_ray_tiles_matches_jax_box_leaves():
 def test_traverse_rays_dispatch():
     """``traverse_rays`` with ``TileTraversal()`` takes row_cap 8; with no
     algorithm the port takes the tile engine too; ``LVTTraversal()`` takes
-    the walk (the same hit set) and ``BFSTraversal()`` raises."""
+    the walk and ``BFSTraversal()`` the breadth-first frontier (the same
+    hit set)."""
     xs, rs = random_scene(100, 5)
     p, d = random_rays(33, 6)
     jbvh, tbvh = both_bvhs("sphere", xs, rs)
@@ -125,8 +126,8 @@ def test_traverse_rays_dispatch():
     assert set(got[0]) == brute_force("sphere", xs, rs, p, d)
     walk = tb.traverse_rays(tbvh, p, d, tb.LVTTraversal())
     assert sorted(walk.contacts_list()) == got[0] and walk.tile_alg is None
-    with pytest.raises(NotImplementedError, match="A11"):
-        tb.traverse_rays(tbvh, p, d, tb.BFSTraversal())
+    bfs = tb.traverse_rays(tbvh, p, d, tb.BFSTraversal())
+    assert sorted(bfs.contacts_list()) == got[0] and bfs.tile_alg is None
     with pytest.raises(ValueError):
         tb.traverse_rays(tbvh, p, d, start_level=99)
     with pytest.raises(ValueError):
