@@ -126,8 +126,33 @@ held against their plain versions at the path's inputs only.
 17. runs depth-first self-contact (torch ops, one end test per 32 steps)
     on the ray scene's 2^18-leaf BVH against the tile engine's set there,
     timed once with its loop steps and host syncs, and, if that took less
-    than a minute, at the bench scene (the two-phase route's set).
+    than a minute, at the bench scene (the two-phase route's set);
+18. builds the bench scene's spheres with ``ExtendedMortonAlgorithm``
+    at 32 and 64 bits: the codes on the card must equal the port's CPU
+    codes bit for bit and the leaves come out in the codes' unsigned
+    order (a 64-bit code may set bit 63); prints the overflow bits and
+    launches of one ``traverse_tiles_fixed`` two-phase call at phase 2's
+    caps under the sync check, and requires ``traverse(bvh)`` with
+    default arguments to return phase 2's set (with the wrapper's growth
+    tries); times the build with both widths beside the default order;
+19. runs ``BVHOptions(index_bits=64)``: the bench scene and the
+    full-width ray scene on both routes and config 4's pair scene on both
+    routes, each under the sync check with int64 contacts, the int32
+    run's set and the int32 run's launches; BFS at config 4's first body
+    (the int32 run's set) and at the bench scene (phase 2's set, with its
+    peak memory); the 1M step's time beside int32's;
+20. makes the 249,882-triangle reference scene of
+    ``benchmarks/dragon_table.py`` (the same draws and casts: triangles
+    from ``default_rng(0)``, 100,000 rays from ``default_rng(1)``) and
+    runs ``traverse_tiles_fixed`` at capacity 2^15 on both routes and
+    ``traverse_rays_tiles_fixed`` at capacity 2^18 on both routes under
+    the sync check: overflow 0, no duplicates, 13,787 contacts equal to a
+    brute force over all sphere pairs on the card and 196,130 hits equal
+    to a brute force over all ray tests; then times the reference table's
+    rows (bounding spheres, build, the contact step, the ray query on the
+    prebuilt tree).
 
+Each phase group prints its seconds and the script's total so far.
 Each row's bound is printed with both of its terms (bytes and operations)
 and with the instruction floor of its operations (twice the operations
 term: the predicates are explicitly rounded, so no operation fuses into an
@@ -179,6 +204,13 @@ UNION_PAIR_CAPACITY = 1 << 20  # twice the density where they overlap
 N_WALK_RAYS = 1000         # rays of the ray walk (config 3's walk point)
 TPU_WALK_RAY_HITS = 1981   # the JAX package's total there (TPU v5e)
 N_DENSE = 2048             # coincident spheres: past the slot caps' ceiling
+
+# the 249,882-triangle reference scene (benchmarks/dragon_table.py)
+N_DRAGON = 249_882
+DRAGON_CAPACITY = 1 << 15      # dragon_table.py:78
+DRAGON_RAY_CAPACITY = 1 << 18  # dragon_table.py:82
+TPU_DRAGON_CONTACTS = 13787    # benchmarks/RESULTS.md:419,432 (TPU v5e)
+TPU_DRAGON_HITS = 196130
 
 
 def synth_triangles(n_tri: int, seed: int = 0):
@@ -907,9 +939,11 @@ def main() -> int:
         f"on the card, {keys_c4.numel()} pairs (the JAX package reported "
         f"{TPU_PAIR4_CONTACTS} on a TPU v5e), "
         f"{time.perf_counter() - t0:.3f} s")
+    launches_c4_of = {}
     for route, alg in (("two-phase", None), ("fallback", fallback)):
         (p_total, p_contacts, p_overflow, p_checks), launches_c4 = \
             pair_path(*c4_bvh, PAIR4_CAPACITY, alg)
+        launches_c4_of[route] = launches_c4
         label = f"config 4 scene, {route}"
         log(f"{label}: {int(p_total)} contacts, overflow {int(p_overflow)}, "
             f"num_checks {float(p_checks):.0f}, launches {launches_c4}")
@@ -1581,6 +1615,249 @@ def main() -> int:
     t_dfs = time.perf_counter() - t_dfs0
     log(f"time: phases 16 (BFS) {t_bfs:.1f} s and 17 (DFS) {t_dfs:.1f} s; "
         f"the script so far {time.perf_counter() - t_script:.1f} s")
+
+    # 18. the extended Morton order at the bench scene: codes on the card
+    # against the port's CPU codes, the contact set of phase 2, the fixed
+    # call at phase 2's caps and the wrapper's growth, the build's time
+    t18 = time.perf_counter()
+    spheres_cpu = ib.BSphere(tuple(x.cpu() for x in spheres.xs),
+                             spheres.r.cpu())
+    sign = -1 << 63
+
+    def counting_fixed():
+        """``tiles.traverse_tiles_fixed`` wrapped to count the growth
+        wrapper's tries (it calls the function by name)."""
+        inner = tiles.traverse_tiles_fixed
+
+        def call(*args, **kw):
+            call.tries += 1
+            return inner(*args, **kw)
+        call.tries = 0
+        return inner, call
+
+    build_opts = {"default": ib.BVHOptions()}
+    for bits in (32, 64):
+        alg = ib.ExtendedMortonAlgorithm(bits=bits)
+        name = f"extended {bits}-bit"
+        codes = ib.morton_encode_extended(spheres, alg)
+        codes_cpu = ib.morton_encode_extended(spheres_cpu, alg)
+        if not torch.equal(codes.cpu(), codes_cpu):
+            raise AssertionError(f"{name}: the codes on the card differ from "
+                                 "the CPU's")
+        ebvh = ib.build(spheres, options=ib.BVHOptions(morton=alg))
+        want = torch.sort(codes_cpu ^ sign, stable=True).values ^ sign
+        if not torch.equal(ebvh.leaves.morton.cpu(), want):
+            raise AssertionError(f"{name}: the build's leaves are not in the "
+                                 "codes' unsigned order")
+        n_top = int((codes < 0).sum())
+        (e_total, _, e_ov, _), e_launches = \
+            main_path(ebvh, two_phase)
+        inner, call = counting_fixed()
+        tiles.traverse_tiles_fixed = call
+        try:
+            t = ib.traverse(ebvh)
+        finally:
+            tiles.traverse_tiles_fixed = inner
+        keys = check_contacts(t.num_contacts, t.cache1, 0, spheres,
+                              f"traverse(bvh), {name}")
+        if t.tile_alg is None or not torch.equal(keys, keys_2p):
+            raise AssertionError(f"{name}: traverse(bvh) differs from phase "
+                                 "2's set")
+        build_opts[name] = ib.BVHOptions(morton=alg)
+        log(f"{name} order, bench scene: codes on the card == the CPU's "
+            f"(exact, {n_top} of {N_BENCH} set bit 63), leaves in unsigned "
+            f"code order; traverse_tiles_fixed at phase 2's caps: "
+            f"{int(e_total)} contacts, overflow bits {int(e_ov)}, no host "
+            f"sync, launches {e_launches}; traverse(bvh): "
+            f"{t.num_contacts} contacts (phase 2's set) after {call.tries} "
+            f"tries, capacity {t.cache1.shape[0]}, pair capacity "
+            f"{t.pair_capacity}, {t.tile_alg}")
+        del t, ebvh, codes, codes_cpu
+    build_ms = {k: [] for k in build_opts}
+    for k in [*build_opts, *reversed(build_opts)]:    # in turns
+        build_ms[k].append(time_ms(
+            lambda: ib.build(spheres, options=build_opts[k])))
+    log("time: build at the bench scene (median of 7, each order twice in "
+        "turns; the extended order reads three ranges to the host once) "
+        + ", ".join(f"{k} {a:.4f} / {b:.4f} ms"
+                    for k, (a, b) in build_ms.items()) + f" [{card}]")
+    del spheres_cpu
+    t_ext = time.perf_counter() - t18
+
+    # 19. 64-bit user indices: the 1M self scene and the full-width ray
+    # scene on both routes, config 4's pair scene on both routes, BFS; the
+    # int32 runs' sets and launches
+    t19 = time.perf_counter()
+    opts64 = ib.BVHOptions(index_bits=64)
+
+    def int64_run(label, out, launches, want_launches, keys_of, want):
+        total, contacts, overflow, _ = out
+        if contacts.dtype != torch.int64:
+            raise AssertionError(f"{label}: contacts are {contacts.dtype}")
+        if launches != want_launches:
+            raise AssertionError(f"{label}: launches {launches}, at int32 "
+                                 f"{want_launches}")
+        if not torch.equal(keys_of(total, contacts, overflow), want):
+            raise AssertionError(f"{label}: the set differs from int32's")
+        log(f"{label}: {int(total)} int64 contacts, the int32 run's set, "
+            f"overflow 0, no host sync, launches {launches} (as at int32)")
+
+    bvh64 = ib.build(spheres, options=opts64)
+    if bvh64.leaves.index.dtype != torch.int64 or \
+            not torch.equal(bvh64.leaves.index, bvh.leaves.index.long()):
+        raise AssertionError("index_bits=64: the build differs from int32's")
+    for route, alg, want_l in (("two-phase", two_phase, launches_2p),
+                               ("fallback", fallback, launches_fb)):
+        out, launches = main_path(bvh64, alg)
+        int64_run(f"index_bits=64, bench scene, {route}", out, launches,
+                  want_l, lambda t, c, o: check_contacts(
+                      int(t), c, int(o), spheres, "int64"), keys_2p)
+    ray_bvh64 = ib.build(ray_spheres, options=opts64)
+    for route, alg, want_l in (("two-phase", None, launches_ray),
+                               ("fallback", ray_fallback, launches_rayfb)):
+        out, launches = ray_path(ray_bvh64, rp, rd, RAY_CAPACITY, alg)
+        int64_run(f"index_bits=64, ray scene, {route}", out, launches,
+                  want_l, lambda t, c, o: hit_keys(
+                      t, c, o, N_RAY_TRIS, N_RAYS, "int64 rays"), keys_bf)
+    c4_bvh64 = [ib.build(v, options=opts64) for v in c4]
+    for route, alg in (("two-phase", None), ("fallback", fallback)):
+        out, launches = pair_path(*c4_bvh64, PAIR4_CAPACITY, alg)
+        int64_run(f"index_bits=64, config 4 scene, {route}", out, launches,
+                  launches_c4_of[route], lambda t, c, o: pair_keys(
+                      t, c, o, *N_PAIR4, "int64 pair"), keys_c4)
+    del ray_bvh64
+    bfs32 = ib.traverse(c4_bvh[0], ib.BFSTraversal())
+    keys_bfs32 = check_contacts(bfs32.num_contacts, bfs32.cache1, 0, c4[0],
+                                "BFS int32, config 4's first body")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bfs64 = ib.traverse(c4_bvh64[0], ib.BFSTraversal())
+    if bfs64.cache1.dtype != torch.int64 or not torch.equal(
+            check_contacts(bfs64.num_contacts, bfs64.cache1, 0, c4[0],
+                           "BFS int64"), keys_bfs32):
+        raise AssertionError("index_bits=64: BFS at config 4's first body "
+                             "differs from int32's")
+    log(f"index_bits=64, traverse(bvh, BFSTraversal()) at config 4's first "
+        f"body ({N_PAIR4[0]} leaves): {bfs64.num_contacts} int64 contacts, "
+        f"the int32 run's set, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    del bfs32, bfs64, c4_bvh64
+    for width, b in (("int32", bvh), ("int64", bvh64)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        bfs1m = ib.traverse(b, ib.BFSTraversal())
+        torch.cuda.synchronize()
+        if bfs1m.cache1.dtype != b.skips.dtype or not torch.equal(
+                check_contacts(bfs1m.num_contacts, bfs1m.cache1, 0, spheres,
+                               f"BFS {width} 1M"), keys_2p):
+            raise AssertionError(f"BFS at the bench scene, {width}: the set "
+                                 "differs from phase 2's")
+        log(f"traverse(bvh, BFSTraversal()) at the bench scene, {width} "
+            f"indices: {bfs1m.num_contacts} contacts (phase 2's set), "
+            f"capacity {bfs1m.cache1.shape[0]}, peak memory "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} GiB "
+            f"above the {base / 2 ** 30:.3f} GiB the script held [{card}]")
+        del bfs1m
+
+    def step64(p1, p2, p3, alg):
+        b = ib.build(ib.bsphere_from_triangles(p1, p2, p3), options=opts64)
+        return ib.traverse_tiles_fixed(b, capacity, alg=alg)
+
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        runs = {"int32": lambda: step(*tris, capacity, alg),
+                "int64": lambda: step64(*tris, alg)}
+        ms = {k: [] for k in runs}
+        for k in ("int32", "int64", "int64", "int32"):   # in turns
+            ms[k].append(time_ms(runs[k]))
+        log(f"time: bench step end to end, {route}, index_bits=64 "
+            f"{ms['int64'][0]:.4f} / {ms['int64'][1]:.4f} ms, int32 "
+            f"{ms['int32'][0]:.4f} / {ms['int32'][1]:.4f} ms (median of 7 "
+            f"each, in turns 32, 64, 64, 32); host enqueue int64 "
+            f"{host_ms(runs['int64']):.4f} ms, int32 "
+            f"{host_ms(runs['int32']):.4f} ms [{card}]")
+    del bvh64
+    t_i64 = time.perf_counter() - t19
+
+    # 20. the 249,882-triangle reference scene (benchmarks/dragon_table.py:
+    # the same draws, the same casts): both contact routes and both ray
+    # routes, against brute forces on the card; the reference table's rows
+    t20 = time.perf_counter()
+    d_tris = to_dev(synth_triangles(N_DRAGON, seed=0), dev)
+    dp, dd = (torch.as_tensor(x, device=dev) for x in bench_rays(N_DRAGON))
+    d_sph = ib.bsphere_from_triangles(*d_tris)
+    d_bvh = ib.build(d_sph)
+    t0 = time.perf_counter()
+    rows_bf = max(1, (1 << 25) // N_DRAGON)
+    bf = []
+    for k0 in range(0, N_DRAGON, rows_bf):    # the upper triangle, i < j
+        a = d_sph[k0:k0 + rows_bf]
+        a = ib.BSphere(tuple(x[:, None] for x in a.xs), a.r[:, None])
+        i, j = ib.iscontact(a, d_sph[k0:]).nonzero(as_tuple=True)
+        keep = i < j
+        bf.append((i[keep] + k0) * N_BENCH + (j[keep] + k0))
+    keys_dragon = torch.cat(bf).sort().values
+    del bf
+    log(f"reference scene: brute force of {N_DRAGON * (N_DRAGON - 1) // 2} "
+        f"sphere pairs on the card, {keys_dragon.numel()} contacts, "
+        f"{time.perf_counter() - t0:.3f} s")
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        (c_total, c_contacts, c_ov, c_checks), launches = counted(
+            lambda: ib.traverse_tiles_fixed(d_bvh, DRAGON_CAPACITY, alg=alg))
+        label = f"reference scene, {route}"
+        keys = check_contacts(int(c_total), c_contacts, int(c_ov), d_sph,
+                              label)
+        if int(c_total) != TPU_DRAGON_CONTACTS or \
+                not torch.equal(keys, keys_dragon):
+            raise AssertionError(f"{label}: {int(c_total)} contacts, not the "
+                                 f"brute force's {TPU_DRAGON_CONTACTS}")
+        log(f"{label}: {N_DRAGON} triangles, capacity {DRAGON_CAPACITY}, "
+            f"{int(c_total)} contacts (the JAX package reported "
+            f"{TPU_DRAGON_CONTACTS} on a TPU v5e), the brute force's set, "
+            f"overflow 0, no duplicates, no host sync, num_checks "
+            f"{float(c_checks):.0f}, launches {launches}")
+    t0 = time.perf_counter()
+    keys_dragon_rays = brute_force_keys(d_sph, dp, dd)
+    log(f"reference scene: brute force of {N_RAYS} x {N_DRAGON} ray tests "
+        f"on the card, {keys_dragon_rays.numel()} hits, "
+        f"{time.perf_counter() - t0:.3f} s")
+    for route, alg in (("two-phase", None), ("fallback", ray_fallback)):
+        (h_total, h_contacts, h_ov, h_checks), launches = ray_path(
+            d_bvh, dp, dd, DRAGON_RAY_CAPACITY, alg)
+        label = f"reference scene rays, {route}"
+        keys = hit_keys(h_total, h_contacts, h_ov, N_DRAGON, N_RAYS, label)
+        if int(h_total) != TPU_DRAGON_HITS or \
+                not torch.equal(keys, keys_dragon_rays):
+            raise AssertionError(f"{label}: {int(h_total)} hits, not the "
+                                 f"brute force's {TPU_DRAGON_HITS}")
+        log(f"{label}: {N_RAYS} rays, capacity {DRAGON_RAY_CAPACITY}, "
+            f"{int(h_total)} hits (the JAX package reported "
+            f"{TPU_DRAGON_HITS} on a TPU v5e), the brute force's set, "
+            f"overflow 0, no duplicates, no host sync, num_checks "
+            f"{float(h_checks):.0f}, launches {launches}")
+    del c_contacts, h_contacts
+    table = {
+        "bounding spheres": lambda: ib.bsphere_from_triangles(*d_tris),
+        "build (spheres -> build, as dragon_table.py's row)":
+            lambda: ib.build(ib.bsphere_from_triangles(*d_tris)),
+        "build alone": lambda: ib.build(d_sph),
+        "contact step (spheres -> build -> traverse_tiles_fixed)":
+            lambda: step(*d_tris, DRAGON_CAPACITY, two_phase),
+        f"{N_RAYS} rays on the prebuilt tree (traverse_rays_tiles_fixed)":
+            lambda: ib.traverse_rays_tiles_fixed(d_bvh, dp, dd,
+                                                 DRAGON_RAY_CAPACITY),
+    }
+    for row, fn in table.items():
+        ms = time_ms(fn)
+        log(f"time: reference table, {row}: {ms:.4f} ms (median of 7), host "
+            f"enqueue {host_ms(fn):.4f} ms [{card}]")
+        if row.startswith(("contact", f"{N_RAYS} rays")):
+            profile_step(torch, fn, ms, f"reference table, {row}", card)
+    del d_bvh, d_sph, d_tris, dp, dd
+    t_dragon = time.perf_counter() - t20
+    log(f"time: phases 18 (extended order) {t_ext:.1f} s, 19 (64-bit "
+        f"indices) {t_i64:.1f} s and 20 (reference scene) {t_dragon:.1f} s; "
+        f"the script {time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -8,14 +8,16 @@ version.  Ported: triangles -> bounding spheres or boxes -> ``build`` (BBox
 or BSphere nodes) -> ``traverse(bvh)`` self-contact, ``traverse(bvh1,
 bvh2)`` two-tree contact and ``traverse_rays`` batch ray queries, each
 through the tile engine (both routes), the leaf-vs-tree walk or
-breadth-first traversal, and self-contact also depth-first.  64-bit
-indices and the extended Morton order are not.
+breadth-first traversal, and self-contact also depth-first; with 32- or
+64-bit user indices and the default or the extended Morton order.
 """
 
 from .build import (BVH, BoundingVolume, Leaves, build, compute_build_level,
                     wrap_bounding_volumes)
-from .morton import (DefaultMortonAlgorithm, MortonAlgorithm,
-                     bounding_volumes_extrema, morton_encode, morton_split3)
+from .morton import (DefaultMortonAlgorithm, ExtendedMortonAlgorithm,
+                     MortonAlgorithm, bounding_volumes_extrema,
+                     morton_encode, morton_encode_extended,
+                     morton_encode_single, morton_split3)
 from .options import DEFAULT_OPTIONS, BVHOptions
 from .raytrace import traverse_rays, traverse_rays_fixed
 from .traverse import (BFSTraversal, BVHTraversal, DFSTraversal,
@@ -34,12 +36,13 @@ from .volumes import (BBox, BSphere, bbox_from_triangles,
 __all__ = [
     "BBox", "BFSTraversal", "BSphere", "BVH", "BVHOptions", "BVHTraversal",
     "BoundingVolume", "DEFAULT_OPTIONS", "DFSTraversal",
-    "DefaultMortonAlgorithm", "ImplicitTree", "LVTTraversal", "Leaves",
-    "MortonAlgorithm", "TileTraversal", "TraversalAlgorithm",
+    "DefaultMortonAlgorithm", "ExtendedMortonAlgorithm", "ImplicitTree",
+    "LVTTraversal", "Leaves", "MortonAlgorithm", "TileTraversal", "TraversalAlgorithm",
     "bbox_from_triangles", "bounding_volumes_extrema",
     "bsphere_from_triangles", "build", "center", "compute_build_level",
     "compute_skips", "default_start_level", "from_triangles", "iscontact",
-    "isintersection", "merge", "morton_encode", "morton_split3", "traverse",
+    "isintersection", "merge", "morton_encode", "morton_encode_extended",
+    "morton_encode_single", "morton_split3", "traverse",
     "traverse_lvt_pair_fixed",
     "traverse_lvt_single_fixed", "traverse_rays", "traverse_rays_fixed",
     "traverse_rays_tiles", "traverse_rays_tiles_fixed", "traverse_tiles",

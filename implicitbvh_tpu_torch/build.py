@@ -18,7 +18,8 @@ from typing import Optional, Union
 
 import torch
 
-from .morton import DefaultMortonAlgorithm, morton_encode
+from .morton import (DefaultMortonAlgorithm, ExtendedMortonAlgorithm,
+                     morton_encode, morton_encode_extended)
 from .options import DEFAULT_OPTIONS, BVHOptions
 from .tree import ImplicitTree, compute_skips
 from .utils import as_tensor
@@ -57,8 +58,10 @@ def wrap_bounding_volumes(volumes: Volume,
 
 
 def _sort_by_morton(leaves: Leaves) -> Leaves:
-    """Stable sort of every leaf field along the Z-curve."""
-    perm = torch.sort(leaves.morton, stable=True).indices
+    """Stable sort of every leaf field along the Z-curve.  The codes are
+    unsigned bit patterns in int64 (a 64-bit extended code may set bit
+    63): flipping the sign bit maps their unsigned order to int64's."""
+    perm = torch.sort(leaves.morton ^ (-1 << 63), stable=True).indices
     return leaves[perm]
 
 
@@ -222,10 +225,12 @@ def build(bounding_volumes: Union[Volume, Leaves], node_kind=BBox, *,
     built_ilevel = compute_build_level(tree, built_level)
 
     alg = options.morton
-    if not isinstance(alg, DefaultMortonAlgorithm):
-        raise NotImplementedError(
-            f"morton algorithm {type(alg).__name__} is not ported (ROADMAP A3)")
-    morton = morton_encode(center_coords(leaves.volume), alg)
+    if isinstance(alg, ExtendedMortonAlgorithm):
+        morton = morton_encode_extended(leaves.volume, alg)
+    elif isinstance(alg, DefaultMortonAlgorithm):
+        morton = morton_encode(center_coords(leaves.volume), alg)
+    else:
+        raise TypeError(f"unsupported morton algorithm {alg}")
     leaves = _sort_by_morton(Leaves(leaves.volume, leaves.index, morton))
     nodes = _aggregate(leaves.volume, tree, built_ilevel, node_kind)
     skips = compute_skips(tree, options.index_dtype, leaves.index.device)

@@ -8,7 +8,9 @@ The dict holds:
 - ``"leaf_kind"``: ``"sphere"`` or ``"box"``;
 - the sorted leaf volume fields: ``leaf_x0, leaf_x1, leaf_x2, leaf_r``
   (spheres) or ``leaf_lo0..2, leaf_up0..2`` (boxes);
-- ``"index"`` (user indices) and ``"morton"`` (codes, any integer type);
+- ``"index"`` (user indices, int32 or int64, kept so) and ``"morton"``
+  (codes of any integer type; uint64 codes keep their bit pattern in
+  int64);
 - the node fields: ``node_lo0..2, node_up0..2`` (BBox nodes) or
   ``node_x0..2, node_r`` (BSphere nodes);
 - ``"skips"``, ``"built_level"`` and ``"num_leaves"``.
@@ -41,15 +43,18 @@ def bvh_from_numpy(d: dict, device=None) -> BVH:
                    tuple(t(f"leaf_up{k}") for k in range(3)))
     else:
         raise ValueError(f"unknown leaf_kind {d['leaf_kind']!r}")
-    morton = torch.as_tensor(np.asarray(d["morton"]).astype(np.int64),
-                             device=dev)
-    leaves = Leaves(vol, t("index", torch.int32), morton)
+    morton = np.asarray(d["morton"])
+    morton = morton.view(np.int64) if morton.dtype == np.uint64 \
+        else morton.astype(np.int64)
+    idt = torch.int64 if np.asarray(d["index"]).dtype.itemsize == 8 \
+        else torch.int32
+    leaves = Leaves(vol, t("index", idt), torch.tensor(morton, device=dev))
     if "node_r" in d:
         nodes = BSphere(tuple(t(f"node_x{k}") for k in range(3)), t("node_r"))
     else:
         nodes = BBox(tuple(t(f"node_lo{k}") for k in range(3)),
                      tuple(t(f"node_up{k}") for k in range(3)))
-    return BVH(skips=t("skips", torch.int32), nodes=nodes, leaves=leaves,
+    return BVH(skips=t("skips", idt), nodes=nodes, leaves=leaves,
                built_level=int(d["built_level"]),
                tree=ImplicitTree.from_num_leaves(int(d["num_leaves"])))
 

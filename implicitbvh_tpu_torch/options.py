@@ -1,7 +1,8 @@
 """BVHOptions — the frozen configuration object.
 
-Counterpart of ``implicitbvh_tpu/options.py``.  Only 32-bit indices are
-ported so far; ``index_bits=64`` raises ``NotImplementedError``.
+Counterpart of ``implicitbvh_tpu/options.py``.  Torch has int64 on every
+device, so ``index_bits=64`` needs no guard like the JAX package's
+``jax_enable_x64`` check.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from .morton import DefaultMortonAlgorithm, MortonAlgorithm
 class BVHOptions:
     """Options for building and traversing BVHs.
 
-    - ``index_bits``: width of the user indices (32; 64 is not ported yet).
+    - ``index_bits``: width of the user indices and skips (32 or 64).
     - ``morton``: the Morton encoding algorithm object.
     - ``capacity_growth``: factor by which the traversal wrappers grow an
       overflowing buffer before re-running.
@@ -41,10 +42,7 @@ class BVHOptions:
     min_traversals_per_thread: int = 100
 
     def __post_init__(self):
-        if self.index_bits == 64:
-            raise NotImplementedError(
-                "BVHOptions(index_bits=64) is not ported yet (ROADMAP A1)")
-        if self.index_bits != 32:
+        if self.index_bits not in (32, 64):
             raise ValueError("index_bits must be 32 or 64")
         if self.capacity_growth <= 1.0:
             raise ValueError("capacity_growth must be > 1")
@@ -58,7 +56,7 @@ class BVHOptions:
 
     @property
     def index_dtype(self):
-        return torch.int32
+        return torch.int64 if self.index_bits == 64 else torch.int32
 
 
 DEFAULT_OPTIONS = BVHOptions()

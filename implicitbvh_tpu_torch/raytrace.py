@@ -18,7 +18,7 @@ import torch
 from .build import BVH, Leaves
 from .options import DEFAULT_OPTIONS, BVHOptions
 from .traverse.bfs import traverse_rays_bfs
-from .traverse.lvt import _round_capacity, _scan
+from .traverse.lvt import _empty_traversal, _round_capacity, _scan
 from .traverse.tiles import TileTraversal
 from .traverse.types import (BFSTraversal, BVHTraversal, DFSTraversal,
                              LVTTraversal, TraversalAlgorithm)
@@ -120,9 +120,7 @@ def traverse_rays(bvh: BVH, points, directions,
         raise ValueError(f"invalid start_level {start_level}")
     p, d = _prep_rays(points, directions, bvh.leaves.volume.dtype, bvh.device)
     if p[0].shape[0] == 0 or bvh.tree.real_nodes < 1:
-        z = torch.zeros((0,), dtype=torch.int32, device=bvh.device)
-        return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z,
-                            start_level1=start_level)
+        return _empty_traversal(bvh, start_level)
     if isinstance(alg, BFSTraversal):
         return traverse_rays_bfs(bvh, p, d, start_level=start_level,
                                  narrow=narrow, options=options)

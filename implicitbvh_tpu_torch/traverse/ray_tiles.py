@@ -49,6 +49,7 @@ from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal, _extract_contacts,
                     _merge_streams, _moment_decode, _popcount,
                     _pow2_capacity, _regroup_emit_runs, _run_chunk_cap,
                     _scatter_drop, _step_caps, _tiled_fields, _wrap_int32)
+from .lvt import _empty_traversal
 from .types import BVHTraversal, LVTTraversal
 
 # rays want a deeper per-ray slot cap than self-contact: one ray can pass
@@ -283,11 +284,9 @@ def traverse_rays_tiles(bvh: BVH, points, directions, *,
     ``LVTTraversal()`` for a scene past the slot caps' ceilings."""
     from ..raytrace import traverse_rays  # here: raytrace imports this module
     alg = _merge_cached_alg(alg or RAY_ALG, cache)
-    dev = bvh.device
     n_rays = int(torch.as_tensor(points).shape[1])
     if n_rays == 0 or bvh.tree.real_nodes < 1:
-        z = torch.zeros((0,), dtype=torch.int32, device=dev)
-        return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z)
+        return _empty_traversal(bvh, 1)
     return _grow_tiles(
         lambda c, a, pc: traverse_rays_tiles_fixed(
             bvh, points, directions, c, alg=a, pair_capacity=pc,
@@ -295,4 +294,5 @@ def traverse_rays_tiles(bvh: BVH, points, directions, *,
         lambda: traverse_rays(bvh, points, directions, LVTTraversal(),
                               narrow=narrow, options=options),
         alg, _pow2_capacity(4 * n_rays, options),
-        _ray_pair_capacity(-(-n_rays // alg.tile)), cache, options, dev)
+        _ray_pair_capacity(-(-n_rays // alg.tile)), cache, options,
+        bvh.skips)

@@ -48,6 +48,7 @@ from ..ops.subtile import subtile_band_bits
 from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
                                 tile_group_emit, tile_run_counts)
 from ..volumes import BSphere
+from .lvt import _empty_traversal
 from .types import BVHTraversal, LVTTraversal, TraversalAlgorithm
 
 SS = 32                 # tiles per supertile
@@ -687,14 +688,16 @@ def traverse_tiles_pair_fixed(bvh1: BVH, bvh2: BVH, capacity: int, *,
 
 
 def _grow_tiles(run_fixed, walk, alg, capacity: int, pair_capacity: int,
-                cache, options: BVHOptions, dev, **levels) -> BVHTraversal:
+                cache, options: BVHOptions, skips: torch.Tensor,
+                **levels) -> BVHTraversal:
     """Overflow-driven growth around a fixed-capacity tile traversal:
     ``run_fixed(capacity, alg, pair_capacity)`` is re-run with grown
     capacities (overflow bit 0) or slot caps (bit 1) until nothing
     overflows; ``cache`` (a previous result) gives the starting capacities.
     A scene still overflowing after eight runs is too dense for the slot
     caps (one tile pair with more than ``MAX_PAIR_CAP`` contacts) and takes
-    ``walk()``, the leaf-vs-tree walk, which handles any density."""
+    ``walk()``, the leaf-vs-tree walk, which handles any density.  The
+    empty ``cache2`` takes the index dtype of ``skips``."""
     if cache is not None and cache.cache1.dim() == 2 \
             and cache.cache1.shape[0] > 0:
         capacity = cache.cache1.shape[0]
@@ -707,7 +710,7 @@ def _grow_tiles(run_fixed, walk, alg, capacity: int, pair_capacity: int,
         if ov == 0:
             return BVHTraversal(
                 num_contacts=int(total), cache1=contacts,
-                cache2=torch.zeros((0,), dtype=torch.int32, device=dev),
+                cache2=skips.new_zeros((0,)),
                 num_checks=int(num_checks), pair_capacity=pair_capacity,
                 tile_alg=alg, **levels)
         if ov & 1:
@@ -733,8 +736,7 @@ def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
     from .api import traverse
     alg = _merge_cached_alg(alg or TileTraversal(), cache)
     if bvh.tree.real_nodes <= 1:
-        z = torch.zeros((0,), dtype=torch.int32, device=bvh.device)
-        return BVHTraversal(num_contacts=0, cache1=z.view(0, 2), cache2=z)
+        return _empty_traversal(bvh, 1)
     return _grow_tiles(
         lambda c, a, pc: traverse_tiles_fixed(bvh, c, alg=a,
                                               pair_capacity=pc,
@@ -743,7 +745,7 @@ def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
                          options=options),
         alg, _pow2_capacity(bvh.num_leaves, options),
         _pair_capacity_for(-(-bvh.num_leaves // alg.tile)), cache, options,
-        bvh.device)
+        bvh.skips)
 
 
 def traverse_tiles_pair(bvh1: BVH, bvh2: BVH, *,
@@ -766,5 +768,5 @@ def traverse_tiles_pair(bvh1: BVH, bvh2: BVH, *,
                          options=options),
         alg, _pow2_capacity(2 * max(bvh1.num_leaves, bvh2.num_leaves),
                             options),
-        _pair_capacity_for(T // 2), cache, options, bvh1.device,
+        _pair_capacity_for(T // 2), cache, options, bvh1.skips,
         start_level2=1)

@@ -8,12 +8,15 @@ same rounding (a float32 square root is taken correctly rounded), and the
 rest is integer arithmetic, a stable sort and min/max.
 """
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 import implicitbvh_tpu as jb
+from implicitbvh_tpu import morton as jax_morton
 import implicitbvh_tpu_torch as tb
 from implicitbvh_tpu_torch import interop
 from implicitbvh_tpu_torch.morton import (DefaultMortonAlgorithm,
@@ -309,16 +312,44 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_unported_options_raise():
-    """What is left unported raises and names its ROADMAP item; BFS (self
-    and two trees) and DFS self-contact, which used to raise, return the
-    leaf-vs-tree walk's set (tests/test_torch_bfs.py and test_torch_dfs.py
-    hold them against the JAX package)."""
+    """The options that used to raise now build: ``index_bits=64`` gives
+    int64 indices and skips (tests/test_torch_index64.py holds every path
+    against the JAX package); a Morton algorithm object of neither ported
+    kind raises ``TypeError`` in both packages, and other index widths
+    ``ValueError``.
+    BFS (self and two trees) and DFS self-contact return the leaf-vs-tree
+    walk's set (tests/test_torch_bfs.py and test_torch_dfs.py hold them
+    against the JAX package)."""
     from implicitbvh_tpu_torch.morton import MortonAlgorithm
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        tb.BVHOptions(index_bits=64)
-    ts = torch_spheres(triangles(16, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    tri = triangles(16, 0)
+    ts = torch_spheres(tri)
+    b64 = tb.build(ts, options=tb.BVHOptions(index_bits=64))
+    assert b64.leaves.index.dtype == b64.skips.dtype == torch.int64
+    assert tb.BVHOptions(index_bits=64).index_dtype == torch.int64
+    assert torch.equal(b64.leaves.index, tb.build(ts).leaves.index.long())
+    with pytest.raises(TypeError, match="morton algorithm"):
         tb.build(ts, options=tb.BVHOptions(morton=MortonAlgorithm()))
+
+    # the JAX package reads ``bits`` before it dispatches, so its
+    # algorithm object of another kind carries one
+    @dataclasses.dataclass(frozen=True)
+    class JaxOther(jax_morton.MortonAlgorithm):
+        bits: int = 32
+
+    @dataclasses.dataclass(frozen=True)
+    class PortOther(MortonAlgorithm):
+        bits: int = 32
+
+    with pytest.raises(TypeError, match="morton algorithm"):
+        tb.build(ts, options=tb.BVHOptions(morton=PortOther()))
+    with pytest.raises(TypeError, match="morton algorithm"):
+        jb.build(jax_spheres(tri), jb.BBox,
+                 options=jb.BVHOptions(morton=JaxOther()))
+    for bits in (16, 48):
+        with pytest.raises(ValueError, match="index_bits"):
+            tb.BVHOptions(index_bits=bits)
+        with pytest.raises(ValueError, match="index_bits"):
+            jb.BVHOptions(index_bits=bits)
     bvh = tb.build(ts)
     lvt_self = set(tb.traverse(bvh, tb.LVTTraversal()).contacts_list())
     for alg in (tb.BFSTraversal(), tb.DFSTraversal()):
