@@ -150,7 +150,25 @@ held against their plain versions at the path's inputs only.
     brute force over all sphere pairs on the card and 196,130 hits equal
     to a brute force over all ray tests; then times the reference table's
     rows (bounding spheres, build, the contact step, the ray query on the
-    prebuilt tree).
+    prebuilt tree);
+21. runs ``implicitbvh_tpu_torch.parallel`` (sharding) on a NCCL world of
+    1 (a FileStore in ``build/``): ``sharded_rebuild_traverse_step`` on
+    the bench spheres (57,868 contacts, phase 2's set, launches of B1-B3;
+    again on moved geometry against ``traverse_tiles_fixed``), then
+    ``sharded_tile_self_contact``, ``sharded_tile_pair`` (phase 13's
+    57,568 pairs) and ``sharded_rays`` (198,988 hits) with launch counts
+    under the sync check (the step's build syncs, so it runs outside it),
+    the ray walk at phase 14's 1,000 rays and the self walk at phase 5's
+    scene; the same sets as the disjoint union of 8 virtual ranks through
+    the local functions, each rank under the sync check (or of the
+    largest of 4 and 2 ranks at which no rank overflows), with each
+    rank's count and live count steps; the scenes of the JAX package's
+    multichip dry run (157 contacts, 32 hits, 319 pairs on the world of 1
+    and on 8 ranks) and of its at-scale test (2^15 spheres, seed 33: no
+    overflow, at least 4 ranks with contacts, ``traverse_tiles``' set);
+    then times the sharded step beside the single-device one and the
+    sharded ray query beside phase 7's (in turns), and each rank's local
+    call at 8 ranks.
 
 Each phase group prints its seconds and the script's total so far.
 Each row's bound is printed with both of its terms (bytes and operations)
@@ -166,6 +184,7 @@ without a CUDA device.
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1226,7 +1245,8 @@ def main() -> int:
     # the full-width pair query (traversal only, on the two built BVHs)
     pair_stages = {
         "two-phase": (("tile the leaves", "_tiled_fields"),
-                      ("phase 1 (with B1)", "_phase1_tile_runs"),
+                      ("phase 1a (superpairs)", "_phase1_superpairs"),
+                      ("phase 1b (B1, run lists)", "_slice_runs"),
                       ("B2", "tile_run_counts"),
                       ("regroup", "_regroup_emit_runs"),
                       ("B3", "tile_group_emit"),
@@ -1858,6 +1878,342 @@ def main() -> int:
     log(f"time: phases 18 (extended order) {t_ext:.1f} s, 19 (64-bit "
         f"indices) {t_i64:.1f} s and 20 (reference scene) {t_dragon:.1f} s; "
         f"the script {time.perf_counter() - t_script:.1f} s")
+
+    # 21. sharding (parallel/sharding.py) on the card: a NCCL world of 1
+    # through the public functions, 8 virtual ranks through the local
+    # functions, the JAX package's multichip scenes, timings
+    t21 = time.perf_counter()
+    import torch.distributed as dist
+    from implicitbvh_tpu_torch import parallel
+    from implicitbvh_tpu_torch.parallel import sharding
+
+    def split_keys(label, n_dev, run_rank, keys_of, want):
+        """``run_rank(rank)`` (a local function) for every rank, each under
+        the sync check with its launches counted; per-rank counts and, for
+        the tile self and pair paths, live count steps against S_loc.
+        Returns None when a rank overflows, else checks that the slices
+        are disjoint, their union is ``want`` and the counts sum to its
+        size, and returns the counts."""
+        counts, keys, lines = [], [], []
+        for rank in range(n_dev):
+            with slice_steps() as steps:
+                (t, c, o), launches = counted(lambda: run_rank(rank))
+            if min(launches[n] for n in ("tile_run_counts",
+                                         "tile_group_emit")) < 1:
+                raise AssertionError(f"{label}, rank {rank}: launches "
+                                     f"{launches}")
+            t = int(t)
+            counts.append(t)
+            lines.append(f"rank {rank}: {t} contacts, overflow {bool(o)}"
+                         + "".join(f", {int(n)} of S_loc {s} count steps"
+                                   for n, s in steps))
+            if bool(o):
+                log(f"{label}, {n_dev} ranks: rank {rank} overflows at the "
+                    f"JAX package's sizing; " + "; ".join(lines))
+                return None
+            keys.append(keys_of(t, c))
+        log(f"{label}, {n_dev} ranks (local functions, each under the sync "
+            f"check): " + "; ".join(lines))
+        union = torch.cat(keys).sort().values
+        if sum(counts) != want.numel() or torch.unique(union).numel() != \
+                union.numel() or not torch.equal(union, want):
+            raise AssertionError(f"{label}, {n_dev} ranks: the slices are "
+                                 "not disjoint or their union differs")
+        return counts
+
+    @contextlib.contextmanager
+    def slice_steps():
+        """The live count steps and S_loc of each superpair slice run
+        (``tiles._slice_runs``, called by name)."""
+        inner, seen = tiles._slice_runs, []
+
+        def call(*args, **kw):
+            out = inner(*args, **kw)
+            seen.append((out[3], args[7]))
+            return out
+        tiles._slice_runs = call
+        try:
+            yield seen
+        finally:
+            tiles._slice_runs = inner
+
+    def split(label, run_rank, keys_of, want):
+        """``split_keys`` at 8 virtual ranks, else at the largest of 4 and
+        2 ranks at which no rank overflows; returns that rank count."""
+        for n_dev in (8, 4, 2):
+            if split_keys(label, n_dev, lambda k: run_rank(k, n_dev),
+                          keys_of, want) is not None:
+                return n_dev
+        raise AssertionError(f"{label}: a rank overflows at 2 ranks")
+
+    def self_keys(sph):
+        return lambda t, c: check_contacts(t, c, 0, sph, "sharded")
+
+    x_b = torch.stack(spheres.xs, 1)          # the bench scene's (N, 3)
+    r_b = spheres.r
+    cap1 = capacity
+    store = os.path.abspath(os.path.join("build",
+                                         f"dist_store_{os.getpid()}"))
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        # a. the public functions on a world of 1: the step (its build
+        # syncs once, in compute_skips' host-to-device copy of the skip
+        # table), then each tile call under the sync check
+        stepper = parallel.sharded_rebuild_traverse_step(
+            mesh, capacity_per_device=cap1, alg=two_phase)
+        stepper(x_b, r_b)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        s_total, s_con, s_counts, s_ov = stepper(x_b, r_b)
+        torch.cuda.synchronize()
+        s_launch = launch_counts()
+        if bool(s_ov) or int(s_total) != TPU_BENCH_CONTACTS or \
+                min(s_launch[n] for n in two_phase_kernels) < 1 or \
+                not torch.equal(check_contacts(
+                    int(s_total), s_con.to_local(), 0, spheres,
+                    "sharded step"), keys_2p):
+            raise AssertionError(f"sharded step, world of 1: {int(s_total)} "
+                                 f"contacts, overflow {bool(s_ov)}, launches "
+                                 f"{s_launch}: not phase 2's set")
+        if tuple(s_con.shape) != (cap1, 2) or \
+                tuple(s_con.to_local().shape) != (cap1, 2) or \
+                tuple(s_con.full_tensor().shape) != (cap1, 2) or \
+                s_counts.full_tensor().tolist() != [TPU_BENCH_CONTACTS]:
+            raise AssertionError("sharded step, world of 1: the DTensor "
+                                 "shapes or counts are wrong")
+        log(f"sharded_rebuild_traverse_step, NCCL world of 1, bench scene "
+            f"({N_BENCH} spheres, capacity {cap1}): {int(s_total)} "
+            f"contacts (phase 2's set), overflow False, counts "
+            f"{s_counts.full_tensor().tolist()}, contacts global "
+            f"{tuple(s_con.shape)} local {tuple(s_con.to_local().shape)}, "
+            f"launches {s_launch}")
+        (p_total, p_con, _, p_ov), p_launch = counted(
+            lambda: parallel.sharded_tile_self_contact(mesh, bvh, cap1,
+                                                       alg=two_phase))
+        if bool(p_ov) or int(p_total) != TPU_BENCH_CONTACTS or \
+                min(p_launch[n] for n in two_phase_kernels) < 1:
+            raise AssertionError("sharded_tile_self_contact, world of 1: "
+                                 "wrong total or launches")
+        log(f"sharded_tile_self_contact, NCCL world of 1: {int(p_total)} "
+            f"contacts, no host sync (the all-reduce and DTensor.from_local "
+            f"included), launches {p_launch}")
+        moved = torch.stack([x + 0.05 for x in spheres.xs], 1)
+        m_total, m_con, _, m_ov = stepper(moved, r_b)
+        m_sph = ib.BSphere(moved, r_b)
+        mt, mc, mo, _ = ib.traverse_tiles_fixed(ib.build(m_sph), cap1,
+                                                alg=two_phase)
+        keys_m = check_contacts(int(mt), mc, int(mo), m_sph,
+                                "moved, traverse_tiles_fixed")
+        if bool(m_ov) or not torch.equal(check_contacts(
+                int(m_total), m_con.to_local(), 0, m_sph, "moved, sharded"),
+                keys_m):
+            raise AssertionError("sharded step on moved geometry differs "
+                                 "from traverse_tiles_fixed")
+        log(f"sharded step on moved geometry (x + 0.05): {int(m_total)} "
+            f"contacts, traverse_tiles_fixed's set")
+        (q_total, q_con, _, q_ov), q_launch = counted(
+            lambda: parallel.sharded_tile_pair(mesh, bvh, bvh2, PAIR_CAPACITY,
+                                               alg=two_phase))
+        if bool(q_ov) or min(q_launch[n] for n in two_phase_kernels) < 1 or \
+                not torch.equal(pair_keys(q_total, q_con.to_local(), 0,
+                                          N_BENCH, N_BODY2, "sharded pair"),
+                                keys_union):
+            raise AssertionError("sharded_tile_pair, world of 1: not phase "
+                                 "13's set")
+        log(f"sharded_tile_pair, NCCL world of 1, full-width pair scene: "
+            f"{int(q_total)} contacts (phase 13's set), no host sync, "
+            f"launches {q_launch}")
+        (h_total, h_con, _, h_ov), h_launch = counted(
+            lambda: parallel.sharded_rays(mesh, ray_bvh, rp, rd,
+                                          RAY_CAPACITY))
+        if bool(h_ov) or int(h_total) != TPU_RAY_HITS or \
+                min(h_launch[n] for n in ray_two_phase_kernels) < 1 or \
+                not torch.equal(hit_keys(h_total, h_con.to_local(), 0,
+                                         N_RAY_TRIS, N_RAYS, "sharded rays"),
+                                keys_bf):
+            raise AssertionError("sharded_rays, world of 1: not the brute "
+                                 "force's set")
+        log(f"sharded_rays (tiles), NCCL world of 1, full-width ray scene: "
+            f"{int(h_total)} hits (the brute force's set), no host sync, "
+            f"launches {h_launch}")
+        keys_walk = hit_keys(tile_hits.num_contacts, tile_hits.cache1, 0,
+                             N_RAY_TRIS, N_WALK_RAYS, "walk rays")
+        w_total, w_con, _, w_ov = parallel.sharded_rays(
+            mesh, ray_bvh, wp, wd, 1 << 12, engine="walk")
+        if bool(w_ov) or not torch.equal(hit_keys(
+                w_total, w_con.to_local(), 0, N_RAY_TRIS, N_WALK_RAYS,
+                "sharded walk rays"), keys_walk):
+            raise AssertionError("sharded_rays (walk), world of 1: not the "
+                                 "walk's set")
+        log(f"sharded_rays (walk), NCCL world of 1, {N_WALK_RAYS} rays: "
+            f"{int(w_total)} hits, phase 14's set")
+        x_sph = ib.bsphere_from_triangles(*to_dev(cross, dev))
+        x_bvh = ib.build(x_sph)
+        xt, xc, xo, _ = ib.traverse_tiles_fixed(x_bvh, cap_x, alg=two_phase)
+        keys_x = check_contacts(int(xt), xc, int(xo), x_sph, "cross scene")
+        stackless_walk.steps = stackless_walk.syncs = 0
+        t0 = time.perf_counter()
+        v_total, v_con, _, v_ov = parallel.sharded_self_contact(
+            mesh, x_bvh, cap_x)
+        torch.cuda.synchronize()
+        if bool(v_ov) or not torch.equal(check_contacts(
+                int(v_total), v_con.to_local(), 0, x_sph, "sharded walk"),
+                keys_x):
+            raise AssertionError("sharded_self_contact, world of 1: not the "
+                                 "tile engine's set")
+        log(f"sharded_self_contact (walk), NCCL world of 1, {N_CROSS}-"
+            f"triangle scene: {int(v_total)} contacts (the tile engine's "
+            f"set), {time.perf_counter() - t0:.3f} s once, "
+            f"{stackless_walk.steps} loop steps, {stackless_walk.syncs} "
+            f"host syncs")
+
+        # b. 8 virtual ranks through the local functions
+        t21b = time.perf_counter()
+        n_self = split(
+            f"1M self-contact (capacity {cap1} per rank)",
+            lambda k, n: sharding._local_sharded_tile_self_contact(
+                bvh, cap1, k, n, alg=two_phase),
+            self_keys(spheres), keys_2p)
+        n_pair = split(
+            f"full-width pair (capacity {PAIR_CAPACITY} per rank)",
+            lambda k, n: sharding._local_sharded_tile_pair(
+                bvh, bvh2, PAIR_CAPACITY, k, n, alg=two_phase),
+            lambda t, c: pair_keys(t, c, 0, N_BENCH, N_BODY2, "rank"),
+            keys_union)
+        n_ray = split(
+            f"full-width rays ({N_RAYS // 8} per rank at 8, capacity "
+            f"{RAY_CAPACITY} per rank)",
+            lambda k, n: sharding._local_sharded_rays(
+                ray_bvh, rp, rd, RAY_CAPACITY, k, n),
+            lambda t, c: hit_keys(t, c, 0, N_RAY_TRIS, N_RAYS, "rank"),
+            keys_bf)
+        wcounts = []
+        wkeys = []
+        for k in range(8):
+            t, c, o = sharding._local_sharded_rays(ray_bvh, wp, wd, 1 << 12,
+                                                   k, 8, engine="walk")
+            if bool(o):
+                raise AssertionError(f"walk rays, rank {k} overflows")
+            wcounts.append(int(t))
+            wkeys.append(hit_keys(t, c, 0, N_RAY_TRIS, N_WALK_RAYS, "rank"))
+        if not torch.equal(torch.cat(wkeys).sort().values, keys_walk):
+            raise AssertionError("walk rays, 8 ranks: the union differs")
+        log(f"walk rays, 8 ranks ({N_WALK_RAYS // 8} rays each): counts "
+            f"{wcounts}, the union is the world of 1's set")
+
+        # c. the JAX package's multichip scenes (__graft_entry__.py:86-140)
+        t21c = time.perf_counter()
+        def example(n, seed):
+            rng = np.random.default_rng(seed)
+            scale = float(n) ** (1.0 / 3.0)
+            return ((rng.random((n, 3)) * scale).astype(np.float32),
+                    (rng.random(n) * 0.4 + 0.05).astype(np.float32))
+        dx, dr = (torch.as_tensor(a, device=dev) for a in example(512, 1))
+        drng = np.random.default_rng(2)
+        dp = torch.as_tensor(drng.random((3, 64)).astype(np.float32) * 4 - 1,
+                             device=dev)
+        dd = torch.as_tensor(drng.random((3, 64)).astype(np.float32) - 0.5,
+                             device=dev)
+        dx2, dr2 = (torch.as_tensor(a, device=dev) for a in example(512, 3))
+        dalg = ib.TileTraversal(tile=32, row_cap=8, pair_cap=64)
+        dbvh = ib.build(ib.BSphere(dx, dr))
+        dbvh2 = ib.build(ib.BSphere(dx2, dr2))
+        world1 = (
+            int(parallel.sharded_rebuild_traverse_step(
+                mesh, capacity_per_device=512, alg=dalg)(dx, dr)[0]),
+            int(parallel.sharded_rays(mesh, dbvh, dp, dd, 256)[0]),
+            int(parallel.sharded_tile_pair(mesh, dbvh, dbvh2, 512,
+                                           alg=dalg)[0]))
+        virt = [sum(int(fn(k)[0]) for k in range(8)) for fn in (
+            lambda k: sharding._local_sharded_rebuild_traverse_step(
+                dx, dr, k, 8, capacity_per_device=512, alg=dalg),
+            lambda k: sharding._local_sharded_rays(dbvh, dp, dd, 256, k, 8),
+            lambda k: sharding._local_sharded_tile_pair(
+                dbvh, dbvh2, 512, k, 8, alg=dalg))]
+        if world1 != (157, 32, 319) or tuple(virt) != world1:
+            raise AssertionError(f"the dry run's scene: world of 1 {world1}, "
+                                 f"8 ranks {virt}, not (157, 32, 319)")
+        log(f"dryrun_multichip(8)'s scene: contact step {world1[0]}, rays "
+            f"{world1[1]}, pair {world1[2]} on the world of 1 and on 8 "
+            "virtual ranks (MULTICHIP_r05.json: 157, 32, 319)")
+        n15 = 1 << 15
+        arng = np.random.default_rng(33)
+        a_x = arng.random((n15, 3), dtype=np.float32) * \
+            (float(n15) ** (1.0 / 3.0))
+        a_r = (arng.random(n15, dtype=np.float32) * 0.4 + 0.05).astype(
+            np.float32)
+        a_sph = ib.BSphere(a_x, a_r, device=dev)
+        a_bvh = ib.build(a_sph)
+        a_alg = ib.TileTraversal(row_cap=8, pair_cap=64)
+        a_ref = ib.traverse_tiles(a_bvh, alg=a_alg)
+        a_counts = split_keys(
+            f"the JAX package's at-scale scene ({n15} spheres, seed 33, "
+            "4096 per rank)", 8,
+            lambda k: sharding._local_sharded_tile_self_contact(
+                a_bvh, 4096, k, 8, alg=a_alg),
+            self_keys(a_sph), check_contacts(a_ref.num_contacts,
+                                             a_ref.cache1, 0, a_sph, "ref"))
+        if a_counts is None or sum(n > 0 for n in a_counts) < 4:
+            raise AssertionError(f"the at-scale scene: counts {a_counts}")
+
+        # d. timings (CUDA events, median of 7, and the host's enqueue)
+        t21d = time.perf_counter()
+        def single_step():
+            return ib.traverse_tiles_fixed(ib.build(ib.BSphere(x_b, r_b)),
+                                           cap1, alg=two_phase)
+        runs = {"sharded step": lambda: stepper(x_b, r_b),
+                "traverse_tiles_fixed step": single_step}
+        ms = {k: [] for k in runs}
+        for k in (*runs, *reversed(runs)):
+            ms[k].append(time_ms(runs[k]))
+        log("time: moving-geometry step at the bench scene (BSphere -> "
+            "build -> traversal, world of 1; median of 7 each, in turns) "
+            + ", ".join(f"{k} {a:.4f} / {b:.4f} ms" for k, (a, b) in
+                        ms.items())
+            + "; host enqueue " + ", ".join(
+                f"{k} {host_ms(fn):.4f} ms" for k, fn in runs.items())
+            + f" [{card}]")
+        for label, n_dev, run_rank in (
+                ("1M self-contact", n_self,
+                 lambda k, n: sharding._local_sharded_tile_self_contact(
+                     bvh, cap1, k, n, alg=two_phase)),
+                ("full-width pair", n_pair,
+                 lambda k, n: sharding._local_sharded_tile_pair(
+                     bvh, bvh2, PAIR_CAPACITY, k, n, alg=two_phase)),
+                ("full-width rays", n_ray,
+                 lambda k, n: sharding._local_sharded_rays(
+                     ray_bvh, rp, rd, RAY_CAPACITY, k, n))):
+            per = [time_ms(lambda: run_rank(k, n_dev)) for k in range(n_dev)]
+            log(f"time: {label}, {n_dev} virtual ranks (local functions, "
+                f"median of 7 each): slowest rank {max(per):.4f} ms, sum "
+                f"over ranks {sum(per):.4f} ms, ranks "
+                + ", ".join(f"{p:.4f}" for p in per) + f" [{card}]")
+        rruns = {"sharded_rays": lambda: parallel.sharded_rays(
+                     mesh, ray_bvh, rp, rd, RAY_CAPACITY),
+                 "traverse_rays_tiles_fixed": ray_query}
+        ms = {k: [] for k in rruns}
+        for k in (*rruns, *reversed(rruns)):
+            ms[k].append(time_ms(rruns[k]))
+        log(f"time: ray query, world of 1 ({N_RAYS} rays, {N_RAY_TRIS} "
+            "leaves; median of 7 each, in turns) "
+            + ", ".join(f"{k} {a:.4f} / {b:.4f} ms" for k, (a, b) in
+                        ms.items())
+            + "; host enqueue " + ", ".join(
+                f"{k} {host_ms(fn):.4f} ms" for k, fn in rruns.items())
+            + f" [{card}]")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    t_end = time.perf_counter()
+    log(f"time: phase 21 (sharding) {t_end - t21:.1f} s (a {t21b - t21:.1f}, "
+        f"b {t21c - t21b:.1f}, c {t21d - t21c:.1f}, d {t_end - t21d:.1f}); "
+        f"the script {t_end - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -38,9 +38,10 @@ def _prep_rays(points, directions, dtype, device):
     return tuple(points), tuple(directions)
 
 
-def _ray_closures(bvh: BVH, points, directions, narrow):
+def _ray_closures(bvh: BVH, points, directions, narrow, ray_offset: int = 0):
     """Node test, leaf test and emitter of the ray walk; ``points`` and
-    ``directions`` are coordinate tuples of (K,) lane tensors."""
+    ``directions`` are coordinate tuples of (K,) lane tensors, whose 1-based
+    ray indices start at ``ray_offset + 1``."""
 
     def node_test(node_vol):
         return isintersection(node_vol, points, directions)
@@ -51,8 +52,8 @@ def _ray_closures(bvh: BVH, points, directions, narrow):
             hit = hit & narrow(leaf, points, directions)
         return hit
 
-    iray = torch.arange(1, points[0].shape[0] + 1, dtype=bvh.skips.dtype,
-                        device=bvh.device)
+    iray = torch.arange(ray_offset + 1, ray_offset + points[0].shape[0] + 1,
+                        dtype=bvh.skips.dtype, device=bvh.device)
 
     def emit(leaf: Leaves):
         return torch.stack([leaf.index, iray], dim=-1)
@@ -60,10 +61,11 @@ def _ray_closures(bvh: BVH, points, directions, narrow):
     return node_test, leaf_test, emit
 
 
-def _walk_rays(bvh: BVH, points, directions, start_level: int, narrow, **kw):
+def _walk_rays(bvh: BVH, points, directions, start_level: int, narrow,
+               ray_offset: int = 0, **kw):
     return stackless_walk(
         bvh.tree, bvh.nodes, bvh.leaves, bvh.skips, start_level,
-        *_ray_closures(bvh, points, directions, narrow),
+        *_ray_closures(bvh, points, directions, narrow, ray_offset),
         num_lanes=points[0].shape[0], **kw)
 
 

@@ -52,9 +52,10 @@ def _scan(counts):
 # One BVH: self-contact
 # --------------------------------------------------------------------------
 
-def _single_closures(bvh: BVH, narrow):
-    """Node test, leaf test and emitter for all N leaf lanes."""
-    q = bvh.leaves
+def _single_closures(bvh: BVH, narrow, lanes: Optional[Leaves] = None):
+    """Node test, leaf test and emitter for the leaf lanes ``lanes`` (all
+    N leaves by default)."""
+    q = bvh.leaves if lanes is None else lanes
     q_node_vol = convert_volume(bvh.node_kind, q.volume)
 
     def node_test(node_vol):

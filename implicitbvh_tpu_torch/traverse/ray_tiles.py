@@ -47,7 +47,7 @@ from ..volumes import _ray_box_test, _reciprocal
 from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal, _extract_contacts,
                     _finish_contacts, _grow_tiles, _merge_cached_alg,
                     _merge_streams, _moment_decode, _popcount,
-                    _pow2_capacity, _regroup_emit_runs, _run_chunk_cap,
+                    _pow2_capacity, _regroup_emit_runs, _run_step_cap,
                     _scatter_drop, _step_caps, _tiled_fields, _wrap_int32)
 from .lvt import _empty_traversal
 from .types import BVHTraversal, LVTTraversal
@@ -235,10 +235,7 @@ def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
         return total, contacts, overflow, num_checks
 
     R, NB, DK = alg.run_r, alg.bands, alg.decode_k
-    S_cap, chunk = _step_caps(pair_capacity // W + RT)
-    ch_cap = _run_chunk_cap(W, R, NB)
-    if chunk > ch_cap:
-        S_cap = -(-S_cap // ch_cap) * ch_cap
+    S_cap = _run_step_cap(pair_capacity // W + RT, alg)
     a_idx, run_idx, bm_words, nsteps, num_checks = _phase1_ray_runs(
         rfields, tiles, W, S_cap, R, -(-T // R), NB)
     counts, colmax, *words = tile_run_counts(

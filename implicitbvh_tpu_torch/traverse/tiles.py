@@ -205,10 +205,12 @@ def _supertile_bounds(tiles):
     return lo.view(3, S, SS).amin(2), up.view(3, S, SS).amax(2), S
 
 
-def _phase1_superpairs(tiles, P_cap: int, tiles_b=None):
+def _phase1_superpairs(tiles, P_cap: int, tiles_b=None, sp_round: int = 16):
     """Supertile-vs-supertile AABB overlap compacted to a superpair list:
     the upper triangle of one tile set's grid, or with ``tiles_b`` the full
-    S1 x S2 grid of two sets.  Returns ``(si, sj, nsp, overflow)``."""
+    S1 x S2 grid of two sets.  ``SP_cap`` is rounded up to a multiple of
+    ``sp_round`` (the sharded paths deal the list evenly over the ranks).
+    Returns ``(si, sj, nsp, overflow)``."""
     lo1, up1, S1 = _supertile_bounds(tiles)
     lo2, up2, S2 = (lo1, up1, S1) if tiles_b is None \
         else _supertile_bounds(tiles_b)
@@ -219,7 +221,7 @@ def _phase1_superpairs(tiles, P_cap: int, tiles_b=None):
     if tiles_b is None:
         ov &= torch.ones_like(ov).triu()
     SP_cap = max(max(S1, S2) * SUPERPAIRS_PER_SUPERTILE, 64, P_cap // 64)
-    SP_cap = -(-SP_cap // 16) * 16
+    SP_cap = -(-SP_cap // sp_round) * sp_round
     kA = torch.arange(S1 * S2, dtype=torch.int32, device=tiles.device)
     spacked, nsp = _compact_flat(ov.reshape(-1), kA, SP_cap)
     return spacked // S2, spacked % S2, nsp, nsp > SP_cap
@@ -289,29 +291,32 @@ def _runs_from_bits(bits, si, sj, G: int, W: int, S_cap: int, R: int,
     return a_idx, grouped[0], bm_words, nsteps, num_checks, overflow
 
 
-def _superpair_bits(tiles, sub, P_cap: int, tiles_b=None):
-    """Superpairs and their band bits: sub-bands of the a tiles (``sub``)
-    against the b tiles (``tiles_b``, or the a tiles themselves and then
-    only the upper triangle).  Returns ``(bits, si, sj, overflow)``."""
-    si, sj, nsp, overflow = _phase1_superpairs(tiles, P_cap, tiles_b)
-    bits = subtile_band_bits(
-        sub, tiles if tiles_b is None else tiles_b, si, sj,
-        nsp.clamp(max=si.shape[0]).reshape(1), triangle=tiles_b is None)
-    return bits, si, sj, overflow
-
-
-def _phase1_tile_runs(tiles, sub, G: int, P_cap: int, W: int, S_cap: int,
-                      R: int, pad_run: int, NB: int = 4, tiles_b=None):
-    """Superpairs -> band bits -> W-grouped run lists for the count kernel.
-    With ``tiles_b`` (the JAX package's ``_phase1_cross_runs``): (tile of
-    bvh1, aligned run of bvh2 tiles) over the full grid, with bvh1's
-    sub-band bits.
+def _slice_runs(sub, tiles_b, si, sj, nsp, G: int, W: int, S_cap: int,
+                R: int, pad_run: int, NB: int, triangle: bool):
+    """A superpair slice ``(si, sj, nsp)`` -> band bits -> W-grouped run
+    lists for the count kernel: sub-bands of the a tiles (``sub``) against
+    the b tiles (``tiles_b``), under ``triangle`` only the upper triangle.
 
     Returns ``(a_idx, run_idx, bm_words, nsteps, num_checks, overflow)``."""
     if R not in (8, 16, 32) or G % NB:
         raise ValueError(f"need run_r in (8, 16, 32) and tile % bands == 0")
-    bits, si, sj, overflow = _superpair_bits(tiles, sub, P_cap, tiles_b)
-    *out, ov2 = _runs_from_bits(bits, si, sj, G, W, S_cap, R, pad_run, NB)
+    bits = subtile_band_bits(sub, tiles_b, si, sj, nsp.reshape(1),
+                             triangle=triangle)
+    return _runs_from_bits(bits, si, sj, G, W, S_cap, R, pad_run, NB)
+
+
+def _phase1_tile_runs(tiles, sub, G: int, P_cap: int, W: int, S_cap: int,
+                      R: int, pad_run: int, NB: int = 4, tiles_b=None):
+    """Superpairs -> band bits -> W-grouped run lists for the count kernel,
+    on the whole superpair list.  With ``tiles_b`` (the JAX package's
+    ``_phase1_cross_runs``): (tile of bvh1, aligned run of bvh2 tiles) over
+    the full grid, with bvh1's sub-band bits.
+
+    Returns ``(a_idx, run_idx, bm_words, nsteps, num_checks, overflow)``."""
+    si, sj, nsp, overflow = _phase1_superpairs(tiles, P_cap, tiles_b)
+    *out, ov2 = _slice_runs(sub, tiles if tiles_b is None else tiles_b, si,
+                            sj, nsp.clamp(max=si.shape[0]), G, W, S_cap, R,
+                            pad_run, NB, triangle=tiles_b is None)
     return (*out, overflow | ov2)
 
 
@@ -334,8 +339,10 @@ def _phase1_tile_pairs(tiles, sub, P_cap: int, tiles_b=None):
     tj`` (int32 wrap-around; ti <= tj on one tile set), their (P_cap,)
     int32 band masks, and the 0-dim int32 pair count (``P_cap + 1`` on any
     phase-1 overflow)."""
-    bits, si, sj, sp_overflow = _superpair_bits(tiles, _fold_sub4(sub),
-                                                P_cap, tiles_b)
+    si, sj, nsp, sp_overflow = _phase1_superpairs(tiles, P_cap, tiles_b)
+    bits = subtile_band_bits(
+        _fold_sub4(sub), tiles if tiles_b is None else tiles_b, si, sj,
+        nsp.clamp(max=si.shape[0]).reshape(1), triangle=tiles_b is None)
     SP_cap = si.shape[0]
     # superpair axis minor: every mega-tile of the compactor mixes all
     # superpairs, so its survivor density stays near the mean
@@ -619,24 +626,61 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
         num_checks = (torch.where(lane < npairs, _popcount(band), 0).sum()
                       .to(torch.float32) * float((G // N_BANDS) * G))
         return total, contacts, overflow, num_checks
-    R = alg.run_r
-    S_cap, chunk = _step_caps(pair_capacity // W + T1)
-    ch_cap = _run_chunk_cap(W, R, NB)
+    S_cap = _run_step_cap(pair_capacity // W + T1, alg)
+    si, sj, nsp, sp_overflow = _phase1_superpairs(tiles1, pair_capacity,
+                                                  tiles2)
+    total, contacts, cap_overflow, slot_overflow, num_checks = \
+        _two_phase_slice(
+            fsets, sub1, tiles1 if tiles2 is None else tiles2, si, sj,
+            nsp.clamp(max=si.shape[0]), alg, mask_kind, S_cap,
+            _step_caps(T1 + capacity // (8 * alg.emit_w))[0],
+            max(4096, capacity // 8), capacity, bvh1.leaves.index, narrow_fn,
+            decode_k=0 if pair else alg.decode_k, **finish)
+    overflow = ((sp_overflow | cap_overflow | (total > capacity)).int()
+                | (slot_overflow.int() << 1))
+    return total, contacts, overflow, num_checks
+
+
+def _run_step_cap(need: int, alg: TileTraversal) -> int:
+    """The count kernel's step cap for ``need`` steps (the JAX package's
+    ``S_cap``), rounded up to its run-chunk cap when a chunk would pass
+    it."""
+    S_cap, chunk = _step_caps(need)
+    ch_cap = _run_chunk_cap(alg.count_w, alg.run_r, alg.bands)
     if chunk > ch_cap:
         S_cap = -(-S_cap // ch_cap) * ch_cap
-    pad_run = -(-T2 // R)
-    a_idx, run_idx, bm_words, nsteps, num_checks, pair_overflow = \
-        _phase1_tile_runs(tiles1, sub1, G, pair_capacity, W, S_cap, R,
-                          pad_run, NB, tiles2)
-    DK = 0 if pair else alg.decode_k    # the pair path has no decode route
+    return S_cap
+
+
+def _two_phase_slice(fsets, sub, tiles_b, si, sj, nsp, alg: TileTraversal,
+                     mask_kind: str, S_cap: int, S2_cap: int, E2_cap: int,
+                     capacity: int, leaf_index, narrow_fn, decode_k: int = 0,
+                     leaf_index_b=None, sort_pairs: bool = True):
+    """The two-phase route on a superpair slice ``(si, sj, nsp)``: band
+    bits, run lists, count kernel, regroup, moment decode (``decode_k >
+    0``), emit kernel and finish, with the step caps ``S_cap`` (count) and
+    ``S2_cap`` (emit), at most ``E2_cap`` live runs and a ``capacity``-long
+    emit stream.  ``fsets`` holds one field set (self-contact: the j > i
+    triangle, sorted pairs) or two (tree order).  The single-device paths
+    run it on the whole superpair list, the sharded ones
+    (``parallel/sharding.py``) on a rank's share.
+
+    Returns ``(total, contacts (capacity, 2), cap_overflow, slot_overflow,
+    num_checks)``: ``cap_overflow`` is a run list, step list or the stream
+    past its cap (the total past ``capacity`` is left to the caller),
+    ``slot_overflow`` a pair past ``pair_cap`` or a row past ``row_cap``."""
+    self_pairs = len(fsets) == 1
+    G, R, NB, W2, DK = (fsets[0].shape[2], alg.run_r, alg.bands, alg.emit_w,
+                        decode_k)
+    T2 = fsets[-1].shape[1]
+    a_idx, run_idx, bm_words, nsteps, num_checks, run_overflow = \
+        _slice_runs(sub, tiles_b, si, sj, nsp, G, alg.count_w, S_cap, R,
+                    -(-T2 // R), NB, triangle=self_pairs)
     counts, colmax, *words = tile_run_counts(
         a_idx, run_idx, bm_words, nsteps.reshape(1), *fsets,
-        mask_kind=mask_kind, R=R, NB=NB, dedup=not pair, moments=bool(DK))
+        mask_kind=mask_kind, R=R, NB=NB, dedup=self_pairs, moments=bool(DK))
     slot_overflow = (counts > alg.pair_cap).any()
 
-    W2 = alg.emit_w
-    S2_cap, _ = _step_caps(T1 + capacity // (8 * W2))
-    E2_cap = max(4096, capacity // 8)
     D_cap = min(max(8192, capacity // 8), E2_cap * R, 1 << 17) if DK else 0
     a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
         a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T2, R,
@@ -645,16 +689,16 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
         else []
     gi, gj, tot, flags = tile_group_emit(
         a_idx2, b_idx2, nsteps2.reshape(1), *fsets, mask_kind=mask_kind,
-        ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=not pair,
+        ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=self_pairs,
         CAP=capacity)
-    cap_overflow = (nsteps2 > S2_cap) | over2 | ((flags & 1) > 0)
+    cap_overflow = run_overflow | (nsteps2 > S2_cap) | over2 | \
+        ((flags & 1) > 0)
     slot_overflow = slot_overflow | ((flags & 2) > 0)
     gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
-    total, contacts = _finish_contacts(gi, gj, total, bvh1.leaves.index,
-                                       narrow_fn, capacity, **finish)
-    overflow = ((pair_overflow | cap_overflow | (total > capacity)).int()
-                | (slot_overflow.int() << 1))
-    return total, contacts, overflow, num_checks
+    total, contacts = _finish_contacts(
+        gi, gj, total, leaf_index, narrow_fn, capacity,
+        leaf_index_b=leaf_index_b, sort_pairs=sort_pairs)
+    return total, contacts, cap_overflow, slot_overflow, num_checks
 
 
 def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
