@@ -156,10 +156,10 @@ held against their plain versions at the path's inputs only.
     the bench spheres (57,868 contacts, phase 2's set, launches of B1-B3;
     again on moved geometry against ``traverse_tiles_fixed``), then
     ``sharded_tile_self_contact``, ``sharded_tile_pair`` (phase 13's
-    57,568 pairs) and ``sharded_rays`` (198,988 hits) with launch counts
-    under the sync check (the step's build syncs, so it runs outside it),
-    the ray walk at phase 14's 1,000 rays and the self walk at phase 5's
-    scene; the same sets as the disjoint union of 8 virtual ranks through
+    57,568 pairs) and ``sharded_rays`` (198,988 hits) with launch counts,
+    each under the sync check (the step's build included), the ray walk
+    at phase 14's 1,000 rays and the self walk at phase 5's scene; the
+    same sets as the disjoint union of 8 virtual ranks through
     the local functions, each rank under the sync check (or of the
     largest of 4 and 2 ranks at which no rank overflows), with each
     rank's count and live count steps; the scenes of the JAX package's
@@ -168,7 +168,22 @@ held against their plain versions at the path's inputs only.
     overflow, at least 4 ranks with contacts, ``traverse_tiles``' set);
     then times the sharded step beside the single-device one and the
     sharded ray query beside phase 7's (in turns), and each rank's local
-    call at 8 ranks.
+    call at 8 ranks;
+22. runs the sync-free step: ``implicitbvh_tpu_torch.entry``'s step
+    (8,192 spheres), the bench step on both routes and the bench step
+    built with the extended order at 32 and 64 bits, with fixed Morton
+    bounds and with ``index_bits=64``, each under the sync check (phase
+    2's set); then captures in CUDA graphs, each warmed up on a side
+    stream first, the entry step, the bench step on both routes, the
+    full-width pair query and ray query on both routes and the extended
+    32-bit build, with the launch counts read after capture (each route's
+    kernels) and the kernels of one replay read from the profiler; each
+    graph is replayed on the captured inputs (57,868 contacts, 57,568
+    pairs, 198,988 hits, the entry step a brute force's set, overflow 0)
+    and on new ones copied into them (triangles of seed 4, the second
+    body or the spheres moved by up to 0.05, rays of seed 6), each replay
+    equal to the eager call on the same inputs; and times the eager call
+    and the replay in turns, with each one's host time.
 
 Each phase group prints its seconds and the script's total so far.
 Each row's bound is printed with both of its terms (bytes and operations)
@@ -1698,7 +1713,7 @@ def main() -> int:
         build_ms[k].append(time_ms(
             lambda: ib.build(spheres, options=build_opts[k])))
     log("time: build at the bench scene (median of 7, each order twice in "
-        "turns; the extended order reads three ranges to the host once) "
+        "turns; no host sync in either order) "
         + ", ".join(f"{k} {a:.4f} / {b:.4f} ms"
                     for k, (a, b) in build_ms.items()) + f" [{card}]")
     del spheres_cpu
@@ -1807,17 +1822,22 @@ def main() -> int:
     dp, dd = (torch.as_tensor(x, device=dev) for x in bench_rays(N_DRAGON))
     d_sph = ib.bsphere_from_triangles(*d_tris)
     d_bvh = ib.build(d_sph)
+    def brute_force_self_keys(sph, tests=1 << 25):
+        """``check_contacts``' keys from ``iscontact`` of every pair ``i <
+        j`` of the spheres ``sph``, ``tests`` pairs at a time."""
+        n = sph.batch_shape[0]
+        rows = max(1, tests // n)
+        keys = []
+        for k0 in range(0, n, rows):      # the upper triangle, i < j
+            a = sph[k0:k0 + rows]
+            a = ib.BSphere(tuple(x[:, None] for x in a.xs), a.r[:, None])
+            i, j = ib.iscontact(a, sph[k0:]).nonzero(as_tuple=True)
+            keep = i < j
+            keys.append((i[keep] + k0) * N_BENCH + (j[keep] + k0))
+        return torch.cat(keys).sort().values
+
     t0 = time.perf_counter()
-    rows_bf = max(1, (1 << 25) // N_DRAGON)
-    bf = []
-    for k0 in range(0, N_DRAGON, rows_bf):    # the upper triangle, i < j
-        a = d_sph[k0:k0 + rows_bf]
-        a = ib.BSphere(tuple(x[:, None] for x in a.xs), a.r[:, None])
-        i, j = ib.iscontact(a, d_sph[k0:]).nonzero(as_tuple=True)
-        keep = i < j
-        bf.append((i[keep] + k0) * N_BENCH + (j[keep] + k0))
-    keys_dragon = torch.cat(bf).sort().values
-    del bf
+    keys_dragon = brute_force_self_keys(d_sph)
     log(f"reference scene: brute force of {N_DRAGON * (N_DRAGON - 1) // 2} "
         f"sphere pairs on the card, {keys_dragon.numel()} contacts, "
         f"{time.perf_counter() - t0:.3f} s")
@@ -1961,17 +1981,13 @@ def main() -> int:
                             world_size=1)
     try:
         mesh = parallel.make_mesh()
-        # a. the public functions on a world of 1: the step (its build
-        # syncs once, in compute_skips' host-to-device copy of the skip
-        # table), then each tile call under the sync check
+        # a. the public functions on a world of 1, each under the sync
+        # check: the step (its build included), then each tile call
         stepper = parallel.sharded_rebuild_traverse_step(
             mesh, capacity_per_device=cap1, alg=two_phase)
         stepper(x_b, r_b)
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        s_total, s_con, s_counts, s_ov = stepper(x_b, r_b)
-        torch.cuda.synchronize()
-        s_launch = launch_counts()
+        (s_total, s_con, s_counts, s_ov), s_launch = counted(
+            lambda: stepper(x_b, r_b))
         if bool(s_ov) or int(s_total) != TPU_BENCH_CONTACTS or \
                 min(s_launch[n] for n in two_phase_kernels) < 1 or \
                 not torch.equal(check_contacts(
@@ -1989,7 +2005,8 @@ def main() -> int:
         log(f"sharded_rebuild_traverse_step, NCCL world of 1, bench scene "
             f"({N_BENCH} spheres, capacity {cap1}): {int(s_total)} "
             f"contacts (phase 2's set), overflow False, counts "
-            f"{s_counts.full_tensor().tolist()}, contacts global "
+            f"{s_counts.full_tensor().tolist()}, no host sync (the build "
+            f"included), contacts global "
             f"{tuple(s_con.shape)} local {tuple(s_con.to_local().shape)}, "
             f"launches {s_launch}")
         (p_total, p_con, _, p_ov), p_launch = counted(
@@ -2214,6 +2231,270 @@ def main() -> int:
     log(f"time: phase 21 (sharding) {t_end - t21:.1f} s (a {t21b - t21:.1f}, "
         f"b {t21c - t21b:.1f}, c {t21d - t21c:.1f}, d {t_end - t21d:.1f}); "
         f"the script {t_end - t_script:.1f} s")
+
+    # 22. the sync-free step: the whole step (triangles or spheres -> build
+    # -> tile traversal) under the sync check for every build option, then
+    # each tile *_fixed query and the step captured in a CUDA graph and
+    # replayed on the captured and on new inputs against the eager call
+    t22 = time.perf_counter()
+    from implicitbvh_tpu_torch import entry as ib_entry
+
+    # a. the whole step eagerly under the sync check
+    e_step, (e_x, e_r) = ib_entry.entry()
+    (e_total, _), e_launch = counted(lambda: e_step(e_x, e_r))
+    log(f"entry() step ({e_x.shape[0]} spheres): {int(e_total)} contacts, "
+        f"no host sync, launches {e_launch}")
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        (_, _, (t, c, o, _)), launches = counted(
+            lambda: step(*tris, capacity, alg))
+        if int(t) != TPU_BENCH_CONTACTS or not torch.equal(
+                check_contacts(int(t), c, int(o), spheres, route), keys_2p):
+            raise AssertionError(f"bench step, {route}: not phase 2's set")
+        check_pair_launches(launches, route, f"bench step, {route}")
+        log(f"bench step, {route} (triangles -> spheres -> build -> "
+            f"traverse_tiles_fixed): {int(t)} contacts, phase 2's set, no "
+            f"host sync, launches {launches}")
+    fixed_bounds = ib.DefaultMortonAlgorithm(
+        compute_extrema=False, mins=(-1.0, -1.0, -1.0),
+        maxs=(float(N_BENCH) ** (1 / 3) + 1.0,) * 3)
+    for name, opts in (
+            ("extended 32-bit", ib.BVHOptions(
+                morton=ib.ExtendedMortonAlgorithm(bits=32))),
+            ("extended 64-bit", ib.BVHOptions(
+                morton=ib.ExtendedMortonAlgorithm(bits=64))),
+            ("fixed Morton bounds", ib.BVHOptions(morton=fixed_bounds)),
+            ("index_bits=64", ib.BVHOptions(index_bits=64))):
+        (t, c, o, _), _ = counted(lambda: ib.traverse_tiles_fixed(
+            ib.build(ib.bsphere_from_triangles(*tris), options=opts),
+            capacity, alg=two_phase))
+        if not torch.equal(check_contacts(int(t), c, int(o), spheres, name),
+                           keys_2p):
+            raise AssertionError(f"bench step, {name}: not phase 2's set")
+        log(f"bench step with {name}: {int(t)} contacts, phase 2's set, no "
+            "host sync")
+
+    # b-d. CUDA graphs
+    def displaced(n, seed=5):
+        """A (n, 3) float32 displacement, uniform in [-0.05, 0.05)."""
+        rng = np.random.default_rng(seed)
+        return torch.as_tensor(
+            ((rng.random((n, 3)) - 0.5) * 0.1).astype(np.float32),
+            device=dev)
+
+    def bvh_tensors(b):
+        return [b.skips, *b.nodes.los, *b.nodes.ups, *b.leaves.volume.xs,
+                b.leaves.volume.r, b.leaves.index, b.leaves.morton]
+
+    def pair_summary(out):
+        """Total, overflow, num_checks and the sorted contact keys."""
+        t, c, o, nc = out
+        t = int(t)
+        c = c[:min(t, c.shape[0])].long()
+        return (t, int(o), float(nc), ((c[:, 0] << 32) | c[:, 1]).sort()
+                .values)
+
+    def replay_ops(g, names, tries=3):
+        """The device ops of one replay of ``g`` from the profiler, which
+        must hold a kernel named by each of ``names`` (a profile that lost
+        one is taken again, up to ``tries`` times)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(tries):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                g.replay()
+                torch.cuda.synchronize()
+            ran = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            missing = [n for n in names if not any(n in e.key for e in ran)]
+            if not missing:
+                return sum(e.count for e in ran)
+        raise AssertionError(f"the profiler saw no {missing} in a replay "
+                             f"({tries} profiles)")
+
+    graph_ms = {}
+
+    def graph_cell(label, run, statics, fresh, summary, check_captured,
+                   wrappers=()):
+        """Warm ``run`` up on a side stream (the kernels' first build and
+        load, ``persistent_blocks``' attribute and occupancy calls), then
+        capture it in a CUDA graph with the launch counts set to 0 just
+        before and read just after (they count at capture, not at replay);
+        replay it on the captured inputs and on ``fresh`` copied into
+        ``statics``, each replay's ``summary`` equal to the eager call's on
+        the same inputs; check the wrappers' kernels in one replay's
+        profile; time eager calls and replays in turns.  At the end the
+        captured inputs are copied back into ``statics``, and the graph
+        and its pool are released."""
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = run()
+        launches = launch_counts()
+        captured = [s.clone() for s in statics]
+        for k, inputs in enumerate((None, fresh)):
+            if inputs is not None:
+                for s, f in zip(statics, inputs, strict=True):
+                    s.copy_(f)
+            g.replay()
+            torch.cuda.synchronize()
+            got = summary(out)
+            if inputs is None:
+                check_captured(out)
+            want = summary(run())
+            if any(not torch.equal(a, b) if torch.is_tensor(a) else a != b
+                   for a, b in zip(got, want, strict=True)):
+                raise AssertionError(f"{label}: replay {k} differs from the "
+                                     "eager call on the same inputs")
+        names = [kn for w in wrappers for kn in device_kernel[w]]
+        n_ops = replay_ops(g, names)
+        ms = {"eager": [], "replay": []}
+        for k in ("eager", "replay", "replay", "eager"):
+            ms[k].append(time_ms(run if k == "eager" else g.replay))
+        host = {"eager": host_ms(run), "replay": host_ms(g.replay)}
+        graph_ms[label] = (ms, host)
+        log(f"graph, {label}: captured (launches at capture {launches}), "
+            f"replayed on the captured and on new inputs, each equal to the "
+            f"eager call; {n_ops} device ops in one replay's profile, "
+            f"among them {', '.join(names) or 'no kernel of the port'}")
+        log(f"time: graph, {label}: eager {ms['eager'][0]:.4f} / "
+            f"{ms['eager'][1]:.4f} ms, replay {ms['replay'][0]:.4f} / "
+            f"{ms['replay'][1]:.4f} ms (CUDA events, median of 7 each, in "
+            f"turns); host per call eager {host['eager']:.4f} ms, replay "
+            f"{host['replay']:.4f} ms (median of 7) [{card}]")
+        for s, c in zip(statics, captured):
+            s.copy_(c)
+        del out, captured
+        g.reset()
+        del g
+        torch.cuda.empty_cache()
+        return launches
+
+    def want_launches(launches, names, label):
+        if min(launches[n] for n in names) < 1:
+            raise AssertionError(f"{label}: a kernel was not captured: "
+                                 f"{launches}")
+
+    # the entry step: a brute force over its spheres on the captured ones
+    gx, gr = e_x.clone(), e_r.clone()
+    keys_entry = brute_force_self_keys(ib.BSphere(gx, gr))
+
+    def entry_captured(out):
+        t, c = out
+        if int(t) < 0 or not torch.equal(check_contacts(
+                int(t), c, 0, ib.BSphere(gx, gr), "entry"), keys_entry):
+            raise AssertionError(f"entry step: {int(t)}, not the brute "
+                                 "force's set")
+        log(f"entry step, captured inputs: {int(t)} contacts, overflow bit "
+            f"0, the brute force's set ({keys_entry.numel()} pairs)")
+
+    def entry_summary(out):
+        t, c = out
+        c = c[:max(0, min(int(t), c.shape[0]))].long()
+        return int(t), ((c[:, 0] << 32) | c[:, 1]).sort().values
+
+    launches = graph_cell(
+        f"entry() step ({e_x.shape[0]} spheres)", lambda: e_step(gx, gr),
+        [gx, gr], ib_entry.example_spheres(gx.shape[0], seed=1, device=dev),
+        entry_summary, entry_captured, two_phase_kernels)
+    want_launches(launches, two_phase_kernels, "entry graph")
+
+    # the bench step on both routes: new triangles of another seed
+    g_tris = [p.clone() for tri in tris for p in tri]
+    new_tris = [p for tri in to_dev(synth_triangles(N_BENCH, seed=4), dev)
+                for p in tri]
+    for route, alg, names in (("two-phase", two_phase, two_phase_kernels),
+                              ("fallback", fallback, fallback_kernels)):
+        def bench_captured(out, route=route):
+            t, c, o, _ = out
+            if int(t) != TPU_BENCH_CONTACTS or not torch.equal(
+                    check_contacts(int(t), c, int(o), spheres, route),
+                    keys_2p):
+                raise AssertionError(f"bench step graph, {route}: not "
+                                     "phase 2's set")
+
+        launches = graph_cell(
+            f"bench step, {route}",
+            lambda alg=alg: step(*[g_tris[3 * k:3 * k + 3]
+                                   for k in range(3)], capacity, alg)[2],
+            g_tris, new_tris, pair_summary, bench_captured, names)
+        check_pair_launches(launches, route, f"bench step graph, {route}")
+    del g_tris, new_tris
+
+    # the full-width pair query: the second body moved
+    g_b1, g_b2 = ib.build(spheres), ib.build(body2)   # bvh's and bvh2's
+    moved2 = ib.build(ib.BSphere(
+        torch.stack(body2.xs, 1) + displaced(N_BODY2), body2.r))
+    for route, alg, names in (("two-phase", two_phase, two_phase_kernels),
+                              ("fallback", fallback, fallback_kernels)):
+        def pair_captured(out, route=route):
+            t, c, o, _ = out
+            if int(t) != keys_union.numel() or not torch.equal(pair_keys(
+                    t, c, o, N_BENCH, N_BODY2, route), keys_union):
+                raise AssertionError(f"pair graph, {route}: not phase 13's "
+                                     "set")
+
+        launches = graph_cell(
+            f"pair query, {route}",
+            lambda alg=alg: ib.traverse_tiles_pair_fixed(
+                g_b1, g_b2, PAIR_CAPACITY, alg=alg,
+                pair_capacity=PAIR_PAIR_CAPACITY),
+            bvh_tensors(g_b2), bvh_tensors(moved2), pair_summary,
+            pair_captured, names)
+        check_pair_launches(launches, route, f"pair graph, {route}")
+    del g_b1, g_b2, moved2
+
+    # the full-width ray query: new rays
+    g_rp, g_rd = rp.clone(), rd.clone()
+    new_rays = [torch.as_tensor(x, device=dev)
+                for x in bench_rays(N_RAY_TRIS, seed=6)]
+    for route, alg, names in (
+            ("ray defaults", None, ray_two_phase_kernels),
+            ("fallback", ray_fallback, ray_fallback_kernels)):
+        def ray_captured(out, route=route):
+            t, c, o, _ = out
+            if int(t) != TPU_RAY_HITS or not torch.equal(hit_keys(
+                    t, c, o, N_RAY_TRIS, N_RAYS, route), keys_bf):
+                raise AssertionError(f"ray graph, {route}: not the brute "
+                                     "force's set")
+
+        launches = graph_cell(
+            f"ray query, {route}",
+            lambda alg=alg: ib.traverse_rays_tiles_fixed(
+                ray_bvh, g_rp, g_rd, RAY_CAPACITY, alg=alg),
+            [g_rp, g_rd], new_rays, pair_summary, ray_captured, names)
+        want_launches(launches, names, f"ray graph, {route}")
+    del g_rp, g_rd, new_rays
+
+    # the extended-order build at 32 bits: the spheres moved
+    ext32 = ib.BVHOptions(morton=ib.ExtendedMortonAlgorithm(bits=32))
+    g_xs, g_r = [x.clone() for x in spheres.xs], spheres.r.clone()
+    d = displaced(N_BENCH)
+    want_ext = bvh_tensors(ib.build(spheres, options=ext32))
+
+    def ext_captured(out):
+        if not all(torch.equal(a, b) for a, b in
+                   zip(bvh_tensors(out), want_ext, strict=True)):
+            raise AssertionError("extended build graph: not the eager "
+                                 "build of the bench spheres")
+
+    graph_cell("extended 32-bit build",
+               lambda: ib.build(ib.BSphere(tuple(g_xs), g_r), options=ext32),
+               g_xs, [g_xs[k] + d[:, k] for k in range(3)],
+               lambda out: [t.clone() for t in bvh_tensors(out)],
+               ext_captured)
+    del g_xs, g_r, d, want_ext
+    t_end22 = time.perf_counter()
+    log(f"time: phase 22 (the sync-free step) {t_end22 - t22:.1f} s; the "
+        f"script {t_end22 - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

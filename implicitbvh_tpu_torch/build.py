@@ -8,6 +8,12 @@ equal codes.  BBox nodes are a plain per-level min/max over a perfect tree
 padded with ``finfo.max`` sentinels.  BSphere nodes take the level-by-level
 pairwise merge: the sphere merge is not associative, so it stays
 tree-structured.
+
+Like the JAX package's build, it makes no host sync for any
+``BVHOptions``: the tree's shape is Python integers, the skip table is made
+on the device from them, and the Morton bounds and the extended order's
+schedule are device tensors.  So a CUDA graph can capture ``build`` with
+the traversal after it.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 Counterpart of ``implicitbvh_tpu/morton.py``: the canonical 3D
 bit-interleave with 5/10/21 bits per axis for 16/32/64-bit codes, the
 epsilon-expanded extrema, ``morton_encode_single`` and the extended Morton
-order.  Codes are held in int64 for every width, as the unsigned code's bit
-pattern: a 64-bit extended code may set bit 63, and ``build`` sorts on the
-unsigned order.  The JAX package's (hi, lo) uint32 pair has no counterpart.
+order, all on the centres' device with no host sync.  Codes are held in
+int64 for every width, as the unsigned code's bit pattern: a 64-bit
+extended code may set bit 63, and ``build`` sorts on the unsigned order.
+The JAX package's (hi, lo) uint32 pair has no counterpart.
 """
 
 from __future__ import annotations
@@ -96,12 +97,13 @@ def _quantize(c, mn, mx, scaling: int):
 
 def _extrema(centers, alg):
     """The algorithm's (mins, maxs): computed from the centres, or its
-    fixed bounds as 0-dim tensors of the centres' type."""
+    fixed bounds as 0-dim tensors of the centres' type (filled on the
+    device, not copied from the host)."""
     if alg.compute_extrema:
         return bounding_volumes_extrema(centers)
     dt, dev = centers[0].dtype, centers[0].device
-    return (tuple(torch.tensor(m, dtype=dt, device=dev) for m in alg.mins),
-            tuple(torch.tensor(m, dtype=dt, device=dev) for m in alg.maxs))
+    return tuple(tuple(torch.full((), m, dtype=dt, device=dev) for m in ms)
+                 for ms in (alg.mins, alg.maxs))
 
 
 def morton_encode(centers, alg: DefaultMortonAlgorithm) -> torch.Tensor:
@@ -179,26 +181,34 @@ class ExtendedMortonAlgorithm(MortonAlgorithm):
 
 
 _AXIS_BIT_CAP = 24   # float32-exact quantization ceiling per axis
-_EPS32 = np.finfo(np.float32).eps
+_EPS32 = float(np.finfo(np.float32).eps)
+_TINY32 = float(np.finfo(np.float32).tiny)   # the TPU flushes below it
+_LN2_32 = float(np.float32(np.log(2.0)))
 
 
-def _exp2_f32(counts: np.ndarray) -> np.ndarray:
-    """``exp2`` of float32 integers as the JAX package computes it: the
-    exponential of ``counts * ln2`` rounded to float32, which is not exact
+def _exp2_f32(counts) -> torch.Tensor:
+    """``exp2`` of integer counts (a tensor, or a numpy array on the CPU)
+    as the JAX package computes it in float32: the exponential of ``counts
+    * ln2`` (a float32 product) rounded to float32, which is not exact
     above 2^12 (2^21 comes out as 2^21 + 1).  The float64 exponential
     rounded to float32 gives the same value at every count 0..24."""
-    arg = counts.astype(np.float32) * np.float32(np.log(2.0))
-    return np.exp(arg.astype(np.float64)).astype(np.float32)
+    arg = torch.as_tensor(counts).to(torch.float32) * _LN2_32
+    return torch.exp(arg.double()).float()
 
 
 def _extended_schedule(ranges, alg: ExtendedMortonAlgorithm):
-    """Longest-axis split schedule over the code bits, in numpy float32 on
-    the host: returns ``(axes, counts)``, ``axes`` a list with one entry per
-    code bit (MSB first), an axis 0..2 or ``"size"``, and ``counts`` the
-    (3,) int32 bits per axis.  The first maximum wins a tie; with no
-    eligible axis the choice cycles from ``i % 3``, skipping capped axes."""
+    """The longest-axis split schedule as the JAX package writes it, a
+    greedy loop over the code bits, here in numpy float32 on the host:
+    returns ``(axes, counts)``, ``axes`` a list with one entry per code bit
+    (MSB first), an axis 0..2 or ``"size"``, and ``counts`` the (3,) int32
+    bits per axis.  The first maximum wins a tie; with no eligible axis the
+    choice cycles from ``i % 3``, skipping capped axes.  A length below
+    float32's smallest normal counts as 0, as the TPU flushes it.  The build
+    runs :func:`_schedule`, the same schedule on the device without a loop;
+    the tests hold one against the other."""
     size_slots = set(alg.size_slots)
     lengths = np.abs(np.asarray(ranges, np.float32))
+    lengths = np.where(lengths < _TINY32, np.float32(0), lengths)
     counts = np.zeros(3, np.int32)
     axes = []
     for i in range(alg.bits):
@@ -214,11 +224,73 @@ def _extended_schedule(ranges, alg: ExtendedMortonAlgorithm):
                       (i + 2) % 3)
         counts[ax] += 1
         lengths[ax] = lengths[ax] * np.float32(0.5)
+        if lengths[ax] < _TINY32:
+            lengths[ax] = 0
         axes.append(ax)
     return axes, counts
 
 
-def _quantize_extended(v, mn, scale: float, maxv: float) -> torch.Tensor:
+def _schedule(rng: torch.Tensor, alg: ExtendedMortonAlgorithm):
+    """:func:`_extended_schedule` on the device, without a loop over the
+    code bits and without a host sync.  ``rng`` is the (3,) float32 tensor
+    of scene ranges.  Returns, per code bit (MSB first), its source row
+    ``src`` (an axis 0..2, or 3 for a size bit) and ``shift`` (the bit of
+    that row's quantized value it takes), and ``counts``, the (3,) int64
+    bits per axis.
+
+    The loop halves an axis's length each time it takes it, exactly down
+    to the smallest normal, below which it flushes to 0; so its j-th
+    length of an axis is ``len * 2^-j`` rounded once and flushed.  It takes
+    the longest eligible length, the lower axis on a tie, at most 24 times
+    an axis: its order over the positive finite lengths is a descending
+    stable sort of the (3, 24) table of them, laid out axis by axis, and
+    the axis bits take that order.  Past it, no eligible axis has a
+    positive finite length and the loop's fallback takes the rest: the
+    first uncapped axis from ``i % 3``.  That choice changes only when an
+    axis reaches the cap, at most twice, so three passes, each up to the
+    next cap, place it."""
+    dev, cap, n = rng.device, _AXIS_BIT_CAP, alg.bits
+    i = torch.arange(n, device=dev)
+    size = (i + 1) % max(alg.size_interval, 1) == 0
+    size &= i < alg.size_interval * len(alg.size_slots)
+    axis_bit = ~size
+    t = axis_bit.cumsum(0) - 1                   # rank among the axis bits
+    j = torch.arange(cap, device=dev)
+    half = (torch.ones_like(j) << (cap - 1 - j)).float() * 2.0 ** (1 - cap)
+    lengths = rng.abs()[:, None] * half          # (3, cap): len * 2^-j
+    key = torch.where(torch.isfinite(lengths) & (lengths >= _TINY32),
+                      lengths, -1.0).reshape(-1)
+    order = torch.sort(key, descending=True, stable=True).indices
+    merged = axis_bit & (t < (key > 0).sum())
+    ax = (order // cap)[t.clamp(min=0)]
+    three = torch.arange(3, device=dev)
+    counts = ((ax[:, None] == three) & merged[:, None]).sum(0)
+
+    fallback = axis_bit & ~merged
+    p0, p1, p2 = i % 3, (i + 1) % 3, (i + 2) % 3
+    start = torch.zeros_like(counts[0])
+    for _ in range(3):
+        capped = counts >= cap
+        choice = torch.where(capped[p0], torch.where(capped[p1], p2, p1), p0)
+        live = fallback & (i >= start)
+        pick = (choice[:, None] == three) & live[:, None]
+        after = counts + pick.cumsum(0)          # counts after each bit
+        full = live & (after.gather(1, choice[:, None])[:, 0] == cap)
+        end = torch.where(full, i, n).min()
+        take = live & (i <= end)
+        ax = torch.where(take, choice, ax)
+        counts = counts + (pick & take[:, None]).sum(0)
+        start = end + 1
+
+    # each axis bit takes the next most significant unconsumed bit of its
+    # axis's quantized value, each size bit the next of the size value
+    mine = ((ax[:, None] == three) & axis_bit[:, None]).cumsum(0)
+    shift = torch.where(size, len(alg.size_slots) - size.cumsum(0),
+                        counts[ax] - mine.gather(1, ax[:, None])[:, 0])
+    return torch.where(size, 3, ax), shift, counts
+
+
+def _quantize_extended(v, mn, scale, maxv) -> torch.Tensor:
     """``(v - mn) * scale`` truncated toward zero and clamped to
     ``[0, maxv]`` (int64); a non-finite or negative value gives 0."""
     enc = (v - mn) * scale
@@ -231,29 +303,28 @@ def morton_encode_extended(volume, alg: ExtendedMortonAlgorithm
     """Extended Morton codes (int64, (N,)) of a batch of volumes (the size
     bits need the whole volume, not only its centres).
 
-    The three scene ranges are read to the host once (one sync) and the
-    schedule runs there in float32, so the assembly knows each code bit's
-    axis and shift: one gather from the stacked (4, N) quantized values by
-    the schedule, shifted into place and summed.  A 64-bit code may set bit
-    63; it is held as the unsigned code's bit pattern (negative as int64).
+    Runs on the volumes' device with no host sync: :func:`_schedule` gives
+    each code bit's source and shift from the three scene ranges, and the
+    assembly is one gather from the stacked quantized values, shifted into
+    place and summed.  A 64-bit code may set bit 63; it is held as the
+    unsigned code's bit pattern (negative as int64).
     """
     from .volumes import BSphere, center_coords, sqrt_rn
     centers = center_coords(volume)
     mins, maxs = _extrema(centers, alg)
     rng = torch.stack([(mx - mn).abs() for mn, mx in zip(mins, maxs)])
-    rng = rng.to(torch.float32).cpu().numpy()
-
-    axes, counts = _extended_schedule(rng, alg)
-    c4 = len(alg.size_slots)
-    maxv = _exp2_f32(counts) - np.float32(1)
-    scales = np.where((counts > 0) & (rng > _EPS32) & np.isfinite(rng),
-                      maxv / np.maximum(rng, _EPS32), np.float32(0))
+    rng = rng.to(torch.float32)
+    src, shift, counts = _schedule(rng, alg)
+    maxv = _exp2_f32(counts) - 1.0
+    scales = torch.where((counts > 0) & (rng > _EPS32) & torch.isfinite(rng),
+                         maxv / rng.clamp(min=_EPS32), 0.0)
     q = [_quantize_extended(centers[k].to(torch.float32),
-                            mins[k].to(torch.float32), float(scales[k]),
-                            float(maxv[k])) for k in range(3)]
+                            mins[k].to(torch.float32), scales[k], maxv[k])
+         for k in range(3)]
 
     # size bits: quantized volume diagonal (2r for spheres), optionally
     # under a square root, over the scene diagonal
+    c4 = len(alg.size_slots)
     if c4 > 0:
         if isinstance(volume, BSphere):
             diag = 2.0 * volume.r.to(torch.float32)
@@ -261,35 +332,17 @@ def morton_encode_extended(volume, alg: ExtendedMortonAlgorithm
             d = [(volume.ups[k] - volume.los[k]).to(torch.float32)
                  for k in range(3)]
             diag = sqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-        scene_diag = np.sqrt(rng[0] * rng[0] + rng[1] * rng[1]
-                             + rng[2] * rng[2])
-        maxv4 = float((1 << c4) - 1)
+        denom = sqrt_rn(rng[0] * rng[0] + rng[1] * rng[1] + rng[2] * rng[2])
         measure = diag.clamp(min=0.0)
         if alg.use_sqrt_size:
-            denom = np.sqrt(scene_diag)
-            measure = sqrt_rn(measure)
-        else:
-            denom = scene_diag
-        size_scale = np.float32(maxv4) / denom \
-            if np.isfinite(denom) and denom > _EPS32 else np.float32(0)
-        q.append(_quantize_extended(measure, 0.0, float(size_scale), maxv4))
-    else:
-        q.append(torch.zeros_like(q[0]))
+            denom, measure = sqrt_rn(denom), sqrt_rn(measure)
+        maxv4 = float((1 << c4) - 1)
+        size_scale = torch.where(torch.isfinite(denom) & (denom > _EPS32),
+                                 maxv4 / denom, 0.0)
+        q.append(_quantize_extended(measure, 0.0, size_scale, maxv4))
 
-    # assembly: bit i of the code (MSB first) takes the next most
-    # significant unconsumed bit of its axis's quantized value
-    rem = [int(c) for c in counts] + [c4]
-    src, shift = [], []
-    for ax in axes:
-        a = 3 if ax == "size" else ax
-        rem[a] -= 1
-        src.append(a)
-        shift.append(rem[a])
-    pos = list(range(alg.bits - 1, -1, -1))
-    dev = centers[0].device
-    src_t, shift_t, pos_t = (torch.tensor(x, dtype=torch.int64, device=dev)
-                             for x in (src, shift, pos))
-    bits = (torch.stack(q)[src_t] >> shift_t[:, None]) & 1
+    pos = torch.arange(alg.bits - 1, -1, -1, device=rng.device)
+    bits = (torch.stack(q)[src] >> shift[:, None]) & 1
     # the terms are disjoint bits; bit 63's is -2^63, and a sum that adds
     # it to bits below 63 cannot overflow
-    return (bits << pos_t[:, None]).sum(0)
+    return (bits << pos[:, None]).sum(0)

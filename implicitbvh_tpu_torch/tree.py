@@ -2,9 +2,10 @@
 
 Counterpart of ``implicitbvh_tpu/tree.py:38-155``: the whole tree shape
 (levels, virtual node counts, per-level offsets, skips) is plain Python
-integer math; ``compute_skips`` makes a tensor, and ``isvirtual_lanes`` and
-``memory_index_lanes`` answer the same questions for tensors of implicit
-indices (the JAX package's ``*_traced`` helpers).
+integer math; ``compute_skips`` makes the skip table on the device from
+those integers (no host data, so ``build`` makes no host sync), and
+``isvirtual_lanes`` and ``memory_index_lanes`` answer the same questions for
+tensors of implicit indices (the JAX package's ``*_traced`` helpers).
 
 Nodes are labelled 1-based in BFS order over a perfect binary tree; level 1
 is the root and level ``levels`` the leaf level.  Leaves beyond
@@ -92,10 +93,24 @@ class ImplicitTree:
         return self.real_nodes - self.real_leaves
 
 
+def _popcount_lanes(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of every entry of a non-negative int64 tensor (shift and
+    mask: pairs, nibbles, bytes, then the byte sum in the top byte)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return (x * 0x0101010101010101) >> 56
+
+
 def compute_skips(tree: ImplicitTree, dtype=torch.int32, device=None):
-    """Tensor of per-level skips."""
-    return torch.as_tensor(tree.skips_np(np.int64), dtype=dtype,
-                           device=resolve_device(device))
+    """Tensor of per-level skips, ``skips_np``'s values, made on the device
+    from the tree's integers (an arange and shifts: nothing is copied from
+    the host)."""
+    level = torch.arange(1, tree.levels + 1, dtype=torch.int64,
+                         device=resolve_device(device))
+    vnl = torch.full_like(level, tree.virtual_leaves) >> \
+        (tree.levels + 1 - level)
+    return (2 * vnl - _popcount_lanes(vnl)).to(dtype)
 
 
 def isvirtual_lanes(tree: ImplicitTree, implicit_index: torch.Tensor,
