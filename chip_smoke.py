@@ -14,9 +14,9 @@ count pass and its flat write pass, B4 grouped slots), which small
 capacities and grown slot caps take; both routes of the batch ray query (two-phase: B2
 with a ray mask and moment words, the moment decode, B3 with a ray mask;
 fallback: B4 with a ray mask); the public ``traverse`` dispatch; the
-leaf-vs-tree walks (torch ops), where growth past the slot caps ends; and
-breadth-first traversal (self, two trees, rays) and depth-first
-self-contact (torch ops).  B6
+leaf-vs-tree walks (kernel W1, one thread per lane), where growth past the
+slot caps ends; breadth-first traversal (self, two trees, rays; torch ops)
+and depth-first self-contact (kernel W2, one thread per initial pair).  B6
 (per-pair slots of a packed pair list) and ``tile_compact`` (B5's padded
 slots, which ``compact_flat`` replaces on the path) are on no path and are
 held against their plain versions at the path's inputs only.
@@ -92,14 +92,16 @@ held against their plain versions at the path's inputs only.
     must ``traverse(bvh1, bvh2)`` with default arguments (the wrapper's own
     capacities and growth); then holds each variant against its plain
     version at these inputs;
-14. runs the leaf-vs-tree walks (torch ops, no kernel) on the card:
+14. runs the leaf-vs-tree walks on the card through kernel W1 (two
+    launches, the count and the write pass, no host sync):
     ``traverse(bvh1, bvh2, LVTTraversal())`` at config 4's scene (the tile
     engine's set); a sphere-leaf BVH against a box-leaf BVH with default
     arguments (mixed kinds take the walk; the brute force's set);
     ``traverse_rays(..., LVTTraversal())`` with 1,000 rays against the
     2^18-leaf ray BVH (the tile ray engine's hits); and 2,048 coincident
-    spheres through ``traverse_tiles``, whose growth ends in the walk
-    (every pair); each timed once with its loop steps and host syncs;
+    spheres through ``traverse_tiles``, whose growth tries launch the tile
+    kernels and end in W1 (every pair); each timed once with its launches,
+    beside the parent's torch-op loop;
 15. times (CUDA events, median of 7 after a warm-up) each self-contact
     route's 1M step end to end and by stage, the full-width ray query
     end to end and by stage (sort rays, phase 1, B2, regroup, decode, B3,
@@ -123,10 +125,9 @@ held against their plain versions at the path's inputs only.
     median of 7) with its growth tries and peak memory, and each
     ``bfs_*_fixed`` run once more at the wrapper's final capacity under the
     sync check: overflow 0, the same total and ``num_checks``;
-17. runs depth-first self-contact (torch ops, one end test per 32 steps)
-    on the ray scene's 2^18-leaf BVH against the tile engine's set there,
-    timed once with its loop steps and host syncs, and, if that took less
-    than a minute, at the bench scene (the two-phase route's set);
+17. runs depth-first self-contact through kernel W2 (two launches) on
+    the ray scene's 2^18-leaf BVH against the tile engine's set and at the
+    bench scene (phase 2's 57,868 contacts), each timed once;
 18. builds the bench scene's spheres with ``ExtendedMortonAlgorithm``
     at 32 and 64 bits: the codes on the card must equal the port's CPU
     codes bit for bit and the leaves come out in the codes' unsigned
@@ -158,7 +159,8 @@ held against their plain versions at the path's inputs only.
     ``sharded_tile_self_contact``, ``sharded_tile_pair`` (phase 13's
     57,568 pairs) and ``sharded_rays`` (198,988 hits) with launch counts,
     each under the sync check (the step's build included), the ray walk
-    at phase 14's 1,000 rays and the self walk at phase 5's scene; the
+    at phase 14's 1,000 rays and the self walk at phase 5's scene (W1's
+    launches, under the sync check); the
     same sets as the disjoint union of 8 virtual ranks through
     the local functions, each rank under the sync check (or of the
     largest of 4 and 2 ranks at which no rank overflows), with each
@@ -183,9 +185,32 @@ held against their plain versions at the path's inputs only.
     and on new ones copied into them (triangles of seed 4, the second
     body or the spheres moved by up to 0.05, rays of seed 6), each replay
     equal to the eager call on the same inputs; and times the eager call
-    and the replay in turns, with each one's host time.
+    and the replay in turns, with each one's host time;
+23. runs the walks on the device: W1 and W2 against their plain versions
+    on small scenes of every variant (self with the dedup prune on box and
+    sphere nodes and on box leaves, a start-level sweep, two trees both
+    ways round, mixed leaf kinds, one-leaf trees, rays with zero and
+    axis-aligned direction components on both leaf kinds and on sphere
+    nodes, ``index_bits=64``, DFS at two start levels on each kind), the
+    counts, offsets and whole buffers exactly, a truncating capacity
+    among them; ``traverse_lvt_single_fixed`` and DFS's count -> scan ->
+    write at 2^18 leaves, ``traverse_lvt_pair_fixed`` at config 4 and
+    ``traverse_rays_fixed`` at 1,000 rays under the sync check, then
+    captured as phase 22's cells and replayed on moved geometry and new
+    rays; and W1's and W2's count and write passes at phases 14 and 17's
+    scenes (CUDA events, median of 7, the profiler's device time), each
+    pass's longest lane in steps and its node and leaf tests, beside the
+    plain loop's write pass once (not at 1M, where it would take
+    minutes).
 
 Each phase group prints its seconds and the script's total so far.
+W1's and W2's rows (``walk_lanes[...]``, ``dfs_lanes[self]``) are their
+write passes at phases 14 and 17's scenes; their bounds count each
+volume's own float32 fields read once (16 bytes a sphere, 24 a box or a
+ray, not the packed records' padding), the index arrays, the counts and
+the rows written, and the tests' operations; the longest lane's steps (a
+chain of dependent loads, from the kernels' diagnostic variant) stand
+beside them.
 Each row's bound is printed with both of its terms (bytes and operations)
 and with the instruction floor of its operations (twice the operations
 term: the predicates are explicitly rounded, so no operation fuses into an
@@ -326,7 +351,8 @@ def main() -> int:
         return 2
     from implicitbvh_tpu_torch import ops
     from implicitbvh_tpu_torch.ops import _build
-    from implicitbvh_tpu_torch.traverse import ray_tiles, tiles
+    from implicitbvh_tpu_torch.traverse import bfs, dfs, ray_tiles, tiles
+    from implicitbvh_tpu_torch.traverse import walk as twalk
 
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -374,7 +400,20 @@ def main() -> int:
             ops.compact_flat, ops.compact_flat_plain,
             "implicitbvh_tpu_torch/csrc/compact.cu",
             "implicitbvh_tpu/ops/compaction.py:106"),
+        # the port's kernels for the JAX package's two device loops
+        # (lax.while_loop, no Pallas kernel): W1 and W2, whose plain
+        # versions are the traverse layer's torch-op loops
+        "walk_lanes": (
+            ops.walk_lanes, twalk.walk_lanes_plain,
+            "implicitbvh_tpu_torch/csrc/walk.cu",
+            "implicitbvh_tpu/traverse/walk.py:140"),
+        "dfs_lanes": (
+            ops.dfs_lanes, dfs.dfs_lanes_plain,
+            "implicitbvh_tpu_torch/csrc/dfs.cu",
+            "implicitbvh_tpu/traverse/dfs.py:139"),
     }
+    walk_kernels = ("walk_lanes", "dfs_lanes")
+    tile_kernels = [n for n in kernels if n not in walk_kernels]
     # the CUDA kernels of each wrapper, by name in the profiler
     device_kernel = {"subtile_band_bits": ("band_bits_kernel",),
                      "tile_run_counts": ("run_counts_kernel",),
@@ -384,7 +423,9 @@ def main() -> int:
                      "tile_compact": ("compact_kernel",),
                      "tile_pair_contacts": ("slot_contacts_kernel",),
                      "compact_flat": ("compact_kernel",
-                                      "compact_flat_kernel")}
+                                      "compact_flat_kernel"),
+                     "walk_lanes": ("walk_kernel",),
+                     "dfs_lanes": ("dfs_kernel",)}
     two_phase_kernels = ("subtile_band_bits", "tile_run_counts",
                          "tile_group_emit")
     fallback_kernels = ("subtile_band_bits", "compact_flat",
@@ -876,7 +917,6 @@ def main() -> int:
             f"{t.cache1.shape[0]}, {t.tile_alg}, launches {launch_counts()}")
 
     # ---- two-tree contact, the public traverse, the walks -----------------
-    from implicitbvh_tpu_torch.traverse.walk import stackless_walk
 
     def pair_path(b1, b2, cap, alg, pair_capacity=None):
         return counted(lambda: ib.traverse_tiles_pair_fixed(
@@ -1069,36 +1109,46 @@ def main() -> int:
     check_kernels(seen_pair_fb, f"pair scene ({N_BENCH} x {N_BODY2} leaves, "
                   "fallback)", fallback_kernels, pair=True)
 
-    # 14. the leaf-vs-tree walks on the card (torch ops in lockstep, no
-    # kernel; the loop's end test syncs with the host)
-    def walked(label, call):
-        """``call()`` timed on the host's clock to the device's end, with
-        the walk's steps and end tests counted."""
-        torch.cuda.synchronize()
-        stackless_walk.steps = stackless_walk.syncs = 0
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = call()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        log(f"time: walk (torch ops, no kernel), {label}: {ms:.1f} ms once, "
-            f"{stackless_walk.steps} loop steps, {stackless_walk.syncs} end "
-            f"tests (host syncs), {out.num_contacts} contacts, kernel "
-            f"launches {sum(launch_counts().values())} [{card}]")
-        if stackless_walk.steps == 0 or out.tile_alg is not None:
-            raise AssertionError(f"{label}: the walk did not run")
-        return out
+    # 14. the leaf-vs-tree walks on the card: kernel W1, one thread per
+    # lane, no host sync; the parent's torch-op loop synced once every 32
+    # steps
+    walk_seen = {}     # row of the kernels line -> (W1's write-pass call,
+                       # the launches of its run)
 
-    t = walked(f"traverse(bvh1, bvh2, LVTTraversal()), {N_PAIR4[0]} x "
-               f"{N_PAIR4[1]} leaves",
-               lambda: ib.traverse(*c4_bvh, ib.LVTTraversal()))
+    def walked(label, row, call, parent_s):
+        """``call()`` timed once on the host's clock to the device's end,
+        the launches counted from 0 and W1's inputs recorded (its last
+        call: the write pass)."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with recorded_inputs(twalk) as seen:
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        log(f"time: walk (W1), {label}: {ms:.3f} ms once, "
+            f"{out.num_contacts} contacts, launches "
+            f"{ {n: v for n, v in launches.items() if v} } (the parent's "
+            f"torch-op loop, one host sync per 32 steps: {parent_s} s on an "
+            f"H100 80GB HBM3, PERF.md section 5) [{card}]")
+        if launches["walk_lanes"] != 2 or out.tile_alg is not None:
+            raise AssertionError(f"{label}: W1 did not run its two passes")
+        walk_seen[row] = (seen["walk_lanes"], launches["walk_lanes"])
+        return out, launches
+
+    t, _ = walked(f"traverse(bvh1, bvh2, LVTTraversal()), {N_PAIR4[0]} x "
+                  f"{N_PAIR4[1]} leaves", "walk_lanes[pair]",
+                  lambda: ib.traverse(*c4_bvh, ib.LVTTraversal()),
+                  "0.52-0.88")
     if not torch.equal(pair_keys(t.num_contacts, t.cache1, 0, *N_PAIR4,
                                  "LVT pair walk"), keys_c4):
         raise AssertionError("the LVT pair walk differs from the tile engine")
     mixed = (ib.build(small_spheres), ib.build(boxes_of(small2_spheres)))
-    t = walked(f"traverse(sphere-leaf BVH, box-leaf BVH), default "
-               f"arguments, {N_SMALL} x {N_SMALL // 2} leaves",
-               lambda: ib.traverse(*mixed))
+    t, _ = walked(f"traverse(sphere-leaf BVH, box-leaf BVH), default "
+                  f"arguments, {N_SMALL} x {N_SMALL // 2} leaves",
+                  "walk_lanes[mixed]", lambda: ib.traverse(*mixed),
+                  "0.25-0.52")
     if not torch.equal(
             pair_keys(t.num_contacts, t.cache1, 0, N_SMALL, N_SMALL // 2,
                       "mixed leaf kinds"),
@@ -1111,9 +1161,10 @@ def main() -> int:
         wp = (wrng.random((3, nr)) * wscale).astype(np.float32)
         wd = (wrng.random((3, nr)) - 0.5).astype(np.float32)
     wp, wd = torch.as_tensor(wp, device=dev), torch.as_tensor(wd, device=dev)
-    t = walked(f"traverse_rays(LVTTraversal()), {N_WALK_RAYS} rays x "
-               f"{N_RAY_TRIS} leaves",
-               lambda: ib.traverse_rays(ray_bvh, wp, wd, ib.LVTTraversal()))
+    t, _ = walked(f"traverse_rays(LVTTraversal()), {N_WALK_RAYS} rays x "
+                  f"{N_RAY_TRIS} leaves", "walk_lanes[ray_sphere]",
+                  lambda: ib.traverse_rays(ray_bvh, wp, wd,
+                                           ib.LVTTraversal()), "7.2-10.6")
     tile_hits = ib.traverse_rays(ray_bvh, wp, wd)
     if tile_hits.tile_alg is None or not torch.equal(
             hit_keys(t.num_contacts, t.cache1, 0, N_RAY_TRIS, N_WALK_RAYS,
@@ -1126,18 +1177,22 @@ def main() -> int:
     dense = ib.build(ib.BSphere(
         torch.zeros((N_DENSE, 3), device=dev),
         torch.full((N_DENSE,), 0.5, device=dev)))
-    t = walked(f"traverse_tiles past the slot caps' ceilings, {N_DENSE} "
-               "coincident spheres (eight tile runs, then the walk)",
-               lambda: ib.traverse_tiles(dense))
+    t, dense_launches = walked(
+        f"traverse_tiles past the slot caps' ceilings, {N_DENSE} coincident "
+        "spheres (eight tile runs, then the walk)", "walk_lanes[self]",
+        lambda: ib.traverse_tiles(dense), "10.0-14.5")
+    if dense_launches["subtile_band_bits"] < 1:
+        raise AssertionError(f"the dense scene's growth tries did not launch "
+                             f"the tile kernels: {dense_launches}")
     c = t.contacts.long()
     if t.num_contacts != N_DENSE * (N_DENSE - 1) // 2 or \
             not bool((c[:, 0] < c[:, 1]).all()) or \
             torch.unique(c[:, 0] * (N_DENSE + 1) + c[:, 1]).numel() != \
             t.num_contacts:
         raise AssertionError("the dense scene's contacts are not every pair")
-    log(f"dense scene: growth ended in the walk, which returns all "
-        f"{t.num_contacts} pairs")
-    del t, c, dense
+    log(f"dense scene: the growth tries launched the tile kernels, then "
+        f"growth ended in W1, which returns all {t.num_contacts} pairs")
+    del t, c
 
     # 15. timings at the bench scene, the full-width ray scene and the
     # full-width pair scene
@@ -1442,7 +1497,8 @@ def main() -> int:
     # full-width ray scene and the ray_box ones at the box-leaf scene, each
     # with the launches counted in its route's run (B6 is on no path: its
     # count over both routes' runs)
-    row_specs = [(name, inputs[name], launches[name]) for name in kernels]
+    row_specs = [(name, inputs[name], launches[name])
+                 for name in tile_kernels]
     row_specs.append(("tile_run_counts", seen_dec["tile_run_counts"],
                       launches_dec["tile_run_counts"]))
     for seen, l2p, lfb in ((seen_ray, launches_ray, launches_rayfb),
@@ -1522,8 +1578,8 @@ def main() -> int:
             log(f"{row}: {int(args[4])} live slots of SP_cap "
                 f"{args[2].shape[0]}, NB {args[0].shape[2]}, Ta "
                 f"{args[0].shape[1]}, Tb {args[1].shape[1]}")
-        if k < len(kernels) and name in ("tile_run_counts", "tile_group_emit",
-                                         "tile_group_contacts"):
+        if k < len(tile_kernels) and name in (
+                "tile_run_counts", "tile_group_emit", "tile_group_contacts"):
             # the dead grid: the same inputs with no live step
             dead = list(args)
             i = 3 if name == "tile_run_counts" else 2
@@ -1541,7 +1597,6 @@ def main() -> int:
     # 16. breadth-first traversal on the card (torch ops, no kernel): the
     # sets of the tile engine and the brute forces, no host sync in the
     # bfs_*_fixed functions at the wrapper's final capacity
-    from implicitbvh_tpu_torch.traverse import bfs, dfs
     t_new = time.perf_counter()
 
     def run_bfs(label, query, fixed, keys_of, want):
@@ -1608,28 +1663,34 @@ def main() -> int:
         f"{keys_union.numel()} pairs, {TPU_RAY_HITS} hits)")
     t_bfs = time.perf_counter() - t_new
 
-    # 17. depth-first self-contact on the card (torch ops, one end test per
-    # 32 steps): the tile engine's set on the ray scene's BVH, then at 1M
-    # when that took less than a minute
-    def run_dfs(label, target, sph, want):
+    # 17. depth-first self-contact on the card: kernel W2, one thread per
+    # initial BVTT pair with its stack in local memory, no host sync; the
+    # tile engine's set on the ray scene's BVH, then phase 2's at 1M
+    dfs_seen = {}      # label -> (W2's write-pass call, its launches)
+
+    def run_dfs(label, target, sph, want, parent_s):
         torch.cuda.synchronize()
-        dfs.dfs_single_fixed.steps = dfs.dfs_single_fixed.syncs = 0
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = ib.traverse(target, ib.DFSTraversal())
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
+        with recorded_inputs(dfs) as seen:
+            t0 = time.perf_counter()
+            out = ib.traverse(target, ib.DFSTraversal())
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
         if out.cache1.device.type != "cuda" or not torch.equal(
                 check_contacts(out.num_contacts, out.cache1, 0, sph,
                                f"DFS, {label}"), want):
             raise AssertionError(f"DFS, {label}: the set differs from the "
                                  "tile engine's")
-        log(f"time: DFS (torch ops, no kernel), {label}: {sec:.3f} s once, "
-            f"{dfs.dfs_single_fixed.steps} loop steps and "
-            f"{dfs.dfs_single_fixed.syncs} end tests (host syncs) over both "
-            f"passes, {out.num_contacts} contacts (the tile engine's set), "
-            f"kernel launches {sum(launch_counts().values())} [{card}]")
-        return sec
+        launches = launch_counts()
+        if launches["dfs_lanes"] != 2:
+            raise AssertionError(f"DFS, {label}: W2 did not run its two "
+                                 f"passes: {launches}")
+        log(f"time: DFS (W2), {label}: {sec:.3f} s once, "
+            f"{out.num_contacts} contacts (the tile engine's set), launches "
+            f"{ {n: v for n, v in launches.items() if v} } (the parent's "
+            f"torch-op loop: {parent_s}) [{card}]")
+        dfs_seen[label] = (seen["dfs_lanes"], launches["dfs_lanes"])
+        return out
 
     t_dfs0 = time.perf_counter()
     tile_ray_self = ib.traverse(ray_bvh, ib.TileTraversal())
@@ -1637,16 +1698,19 @@ def main() -> int:
                                    tile_ray_self.cache1, 0, ray_spheres,
                                    "tile self-contact, ray scene")
     del tile_ray_self
-    sec = run_dfs(f"self-contact, {N_RAY_TRIS} leaves, start level "
-                  f"{ib.default_start_level(ray_bvh, ib.DFSTraversal())}",
-                  ray_bvh, ray_spheres, keys_ray_self)
-    if sec < 60:
-        run_dfs(f"self-contact, {N_BENCH} leaves, start level "
-                f"{ib.default_start_level(bvh, ib.DFSTraversal())}",
-                bvh, spheres, keys_2p)
-    else:
-        log(f"DFS at {N_BENCH} leaves not run: {N_RAY_TRIS} leaves took "
-            f"{sec:.1f} s, past the minute allowed")
+    run_dfs(f"self-contact, {N_RAY_TRIS} leaves, start level "
+            f"{ib.default_start_level(ray_bvh, ib.DFSTraversal())}",
+            ray_bvh, ray_spheres, keys_ray_self,
+            "69.3-100.6 s on an H100 80GB HBM3, PERF.md section 5")
+    out = run_dfs(f"self-contact, {N_BENCH} leaves, start level "
+                  f"{ib.default_start_level(bvh, ib.DFSTraversal())}",
+                  bvh, spheres, keys_2p, "never run on the card")
+    if out.num_contacts != TPU_BENCH_CONTACTS:
+        raise AssertionError(f"DFS at {N_BENCH} leaves: {out.num_contacts} "
+                             f"contacts, not {TPU_BENCH_CONTACTS}")
+    log(f"DFS at {N_BENCH} leaves: {out.num_contacts} contacts, phase 2's "
+        "set")
+    del out
     t_dfs = time.perf_counter() - t_dfs0
     log(f"time: phases 16 (BFS) {t_bfs:.1f} s and 17 (DFS) {t_dfs:.1f} s; "
         f"the script so far {time.perf_counter() - t_script:.1f} s")
@@ -2060,34 +2124,36 @@ def main() -> int:
             f"launches {h_launch}")
         keys_walk = hit_keys(tile_hits.num_contacts, tile_hits.cache1, 0,
                              N_RAY_TRIS, N_WALK_RAYS, "walk rays")
-        w_total, w_con, _, w_ov = parallel.sharded_rays(
-            mesh, ray_bvh, wp, wd, 1 << 12, engine="walk")
-        if bool(w_ov) or not torch.equal(hit_keys(
-                w_total, w_con.to_local(), 0, N_RAY_TRIS, N_WALK_RAYS,
-                "sharded walk rays"), keys_walk):
+        (w_total, w_con, _, w_ov), w_launch = counted(
+            lambda: parallel.sharded_rays(mesh, ray_bvh, wp, wd, 1 << 12,
+                                          engine="walk"))
+        if bool(w_ov) or w_launch["walk_lanes"] != 2 or not torch.equal(
+                hit_keys(w_total, w_con.to_local(), 0, N_RAY_TRIS,
+                         N_WALK_RAYS, "sharded walk rays"), keys_walk):
             raise AssertionError("sharded_rays (walk), world of 1: not the "
-                                 "walk's set")
+                                 f"walk's set, or W1 not launched twice: "
+                                 f"{w_launch}")
         log(f"sharded_rays (walk), NCCL world of 1, {N_WALK_RAYS} rays: "
-            f"{int(w_total)} hits, phase 14's set")
+            f"{int(w_total)} hits, phase 14's set, no host sync, W1 "
+            f"launches {w_launch['walk_lanes']}")
         x_sph = ib.bsphere_from_triangles(*to_dev(cross, dev))
         x_bvh = ib.build(x_sph)
         xt, xc, xo, _ = ib.traverse_tiles_fixed(x_bvh, cap_x, alg=two_phase)
         keys_x = check_contacts(int(xt), xc, int(xo), x_sph, "cross scene")
-        stackless_walk.steps = stackless_walk.syncs = 0
         t0 = time.perf_counter()
-        v_total, v_con, _, v_ov = parallel.sharded_self_contact(
-            mesh, x_bvh, cap_x)
-        torch.cuda.synchronize()
-        if bool(v_ov) or not torch.equal(check_contacts(
-                int(v_total), v_con.to_local(), 0, x_sph, "sharded walk"),
-                keys_x):
+        (v_total, v_con, _, v_ov), v_launch = counted(
+            lambda: parallel.sharded_self_contact(mesh, x_bvh, cap_x))
+        if bool(v_ov) or v_launch["walk_lanes"] != 2 or not torch.equal(
+                check_contacts(int(v_total), v_con.to_local(), 0, x_sph,
+                               "sharded walk"), keys_x):
             raise AssertionError("sharded_self_contact, world of 1: not the "
-                                 "tile engine's set")
+                                 "tile engine's set, or W1 not launched "
+                                 f"twice: {v_launch}")
         log(f"sharded_self_contact (walk), NCCL world of 1, {N_CROSS}-"
             f"triangle scene: {int(v_total)} contacts (the tile engine's "
-            f"set), {time.perf_counter() - t0:.3f} s once, "
-            f"{stackless_walk.steps} loop steps, {stackless_walk.syncs} "
-            f"host syncs")
+            f"set), {time.perf_counter() - t0:.3f} s once, no host sync, W1 "
+            f"launches {v_launch['walk_lanes']} (the parent's torch-op "
+            f"loop: 0.877-1.401 s on an H100 80GB HBM3)")
 
         # b. 8 virtual ranks through the local functions
         t21b = time.perf_counter()
@@ -2111,17 +2177,26 @@ def main() -> int:
             keys_bf)
         wcounts = []
         wkeys = []
+        w_launches = 0
+        t0 = time.perf_counter()
         for k in range(8):
-            t, c, o = sharding._local_sharded_rays(ray_bvh, wp, wd, 1 << 12,
-                                                   k, 8, engine="walk")
-            if bool(o):
-                raise AssertionError(f"walk rays, rank {k} overflows")
+            (t, c, o), launches = counted(
+                lambda: sharding._local_sharded_rays(
+                    ray_bvh, wp, wd, 1 << 12, k, 8, engine="walk"))
+            if bool(o) or launches["walk_lanes"] != 2:
+                raise AssertionError(f"walk rays, rank {k}: overflow "
+                                     f"{bool(o)}, launches {launches}")
+            w_launches += launches["walk_lanes"]
             wcounts.append(int(t))
             wkeys.append(hit_keys(t, c, 0, N_RAY_TRIS, N_WALK_RAYS, "rank"))
         if not torch.equal(torch.cat(wkeys).sort().values, keys_walk):
             raise AssertionError("walk rays, 8 ranks: the union differs")
-        log(f"walk rays, 8 ranks ({N_WALK_RAYS // 8} rays each): counts "
-            f"{wcounts}, the union is the world of 1's set")
+        log(f"walk rays, 8 ranks ({N_WALK_RAYS // 8} rays each, each under "
+            f"the sync check): counts {wcounts}, the union is the world of "
+            f"1's set; W1 launches {w_launches}, "
+            f"{time.perf_counter() - t0:.3f} s for the eight (the parent's "
+            f"torch-op loop: phase 21 b took 67.3-90.8 s on an H100, "
+            f"nearly all of it these walks)")
 
         # c. the JAX package's multichip scenes (__graft_entry__.py:86-140)
         t21c = time.perf_counter()
@@ -2495,6 +2570,299 @@ def main() -> int:
     t_end22 = time.perf_counter()
     log(f"time: phase 22 (the sync-free step) {t_end22 - t22:.1f} s; the "
         f"script {t_end22 - t_script:.1f} s")
+
+    # 23. the walks on the device: W1 and W2 against their plain versions
+    # on every variant, the walk and DFS *_fixed calls under the sync check
+    # and captured in CUDA graphs, then their times at phases 14 and 17's
+    # scenes beside the plain loops, and their rows of the kernels line
+    t23 = time.perf_counter()
+    from implicitbvh_tpu_torch.ops import walk as owalk
+    from implicitbvh_tpu_torch.traverse.lvt import _scan
+
+    # a. every variant on small scenes, kernel against plain, exactly
+    def scene(n, seed, box=False, node_kind=ib.BBox, options=None):
+        """n spheres (or their boxes) at about unit density."""
+        rng = np.random.default_rng(seed)
+        x = (rng.random((n, 3)) * float(n) ** (1 / 3)).astype(np.float32)
+        r = (rng.random(n) * 0.4 + 0.3).astype(np.float32)
+        sph = ib.BSphere(x, r, device=dev)
+        return ib.build(boxes_of(sph) if box else sph, node_kind,
+                        options=options or ib.DEFAULT_OPTIONS)
+
+    def ray_lanes(k, seed, scale):
+        """Rays with zero direction components, some along an axis, some
+        starting in a coordinate plane."""
+        rng = np.random.default_rng(seed)
+        p = (rng.random((3, k)) * scale).astype(np.float32)
+        d = (rng.random((3, k)) - 0.5).astype(np.float32)
+        d[0, :k // 4] = 0.0
+        d[1, k // 8:k // 3] = 0.0
+        d[:2, k // 2:k // 2 + k // 8] = 0.0
+        p[2, :k // 6] = 0.0
+        return (tuple(torch.as_tensor(p, device=dev)),
+                tuple(torch.as_tensor(d, device=dev)))
+
+    def dedup_of(b):
+        return torch.arange(1, b.num_leaves + 1, dtype=b.skips.dtype,
+                            device=dev) + (1 << (b.tree.levels - 1)) - 1
+
+    va = scene(1200, 1)
+    vs = scene(800, 2, node_kind=ib.BSphere)
+    vb = scene(1000, 3, box=True)
+    v64 = scene(1200, 1, options=ib.BVHOptions(index_bits=64))
+    vt = scene(700, 4)
+    vtb = scene(600, 5, box=True)
+    one = ib.build(ib.BSphere(torch.full((1, 3), 4.0, device=dev),
+                              torch.full((1,), 3.0, device=dev)))
+    vr = ray_lanes(150, 6, float(1200) ** (1 / 3))
+    variants = []          # (label, kernel, args, kw, truncate)
+    for lab, b, sls in (("self, box nodes", va, range(1, va.tree.levels + 1)),
+                        ("self, sphere nodes", vs, (1, 5)),
+                        ("self, box leaves", vb, (1, 6)),
+                        ("self, index_bits=64", v64, (1, 4))):
+        for sl in sls:
+            variants.append((f"W1 {lab}, start level {sl}", "walk_lanes",
+                             (b, sl, b.leaves),
+                             dict(dedup_ileaf=dedup_of(b)), sl == 1))
+    for lab, q, t, flip in (
+            ("two trees", va, vt, False), ("two trees flipped", vt, va, True),
+            ("mixed, sphere lanes and box leaves", va, vtb, False),
+            ("mixed, box lanes and sphere leaves", vb, vt, True),
+            ("one-leaf lane tree", one, vt, True),
+            ("one-leaf target tree", vt, one, False)):
+        variants.append((f"W1 {lab}", "walk_lanes", (t, 1, q.leaves),
+                         dict(flip=flip), lab == "two trees"))
+    for lab, b in (("sphere leaves", va), ("box leaves", vb),
+                   ("sphere nodes", vs), ("index_bits=64", v64)):
+        variants.append((f"W1 rays, {lab}", "walk_lanes", (b, 1, vr),
+                         dict(ray_offset=7), lab == "box leaves"))
+    dfs_scenes = (("box nodes", scene(300, 7)),
+                  ("sphere nodes", scene(300, 8, node_kind=ib.BSphere)),
+                  ("box leaves", scene(300, 9, box=True)),
+                  ("index_bits=64", scene(300, 7, options=ib.BVHOptions(
+                      index_bits=64))))
+    for lab, b in dfs_scenes:
+        for sl in (b.tree.levels // 2, b.tree.levels - 2):
+            variants.append((f"W2 {lab}, start level {sl}", "dfs_lanes",
+                             (b, sl), {}, sl == b.tree.levels // 2))
+    n_checked = 0
+    for label, name, args, kw, truncate in variants:
+        wrapper, plain = kernels[name][:2]
+        c, out0 = wrapper(*args, **kw)             # the count pass
+        total = int(c.sum())
+        off, _ = _scan(c)
+        caps = (total + 3,) + ((max(total * 2 // 3, 1),) if truncate else ())
+        for cap in caps:
+            got = wrapper(*args, **kw, capacity=cap, offsets=off)
+            pc, pout = plain(*args, **kw, capacity=cap, offsets=off)
+            torch.cuda.synchronize()
+            if not (torch.equal(c, pc) and torch.equal(got[0], pc) and
+                    torch.equal(got[1], pout) and
+                    torch.equal(off, _scan(pc)[0])):
+                raise AssertionError(f"{label}: the kernel differs from its "
+                                     f"plain version at capacity {cap}")
+            n_checked += 1
+        if total == 0 and "one-leaf" not in label:
+            raise AssertionError(f"{label}: no contact, a weak check")
+        log(f"{label}: {total} contacts, kernel == plain (counts, offsets "
+            f"and the whole buffer in order at capacity "
+            f"{' and '.join(map(str, caps))})")
+    log(f"W1 and W2 equal their plain versions on {len(variants)} variants "
+        f"({n_checked} buffers)")
+
+    # b. the *_fixed walks and DFS's count -> scan -> write under the sync
+    # check, then captured and replayed on new inputs (phase 22's cells)
+    def sync_checked(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out
+
+    def walk_summary(out):
+        t, c = out
+        t = int(t)
+        c = c[:min(t, c.shape[0])].long()
+        return t, ((c[:, 0] << 32) | c[:, 1]).sort().values
+
+    g_self = ib.build(ray_spheres)
+    moved_self = bvh_tensors(ib.build(ib.BSphere(
+        torch.stack(ray_spheres.xs, 1) + displaced(N_RAY_TRIS, seed=7),
+        ray_spheres.r)))
+    cap_self = 1 << math.ceil(math.log2(keys_ray_self.numel()))
+    dfs_sl = ib.default_start_level(g_self, ib.DFSTraversal())
+
+    def self_check(label):
+        def check(out):
+            if not torch.equal(check_contacts(int(out[0]), out[1], 0,
+                                              ray_spheres, label),
+                               keys_ray_self):
+                raise AssertionError(f"{label}: not the tile engine's set")
+        return check
+
+    def dfs_fixed():
+        c, _ = dfs.dfs_single_fixed(g_self, dfs_sl)
+        off, total = _scan(c)
+        return total, dfs.dfs_single_fixed(g_self, dfs_sl, cap_self, off)[1]
+
+    g_c4 = [ib.build(v) for v in c4]
+    moved_c4 = bvh_tensors(ib.build(ib.BSphere(
+        torch.stack(c4[1].xs, 1) + displaced(N_PAIR4[1], seed=8), c4[1].r)))
+
+    def c4_check(out):
+        if not torch.equal(pair_keys(out[0], out[1], 0, *N_PAIR4,
+                                     "captured LVT pair"), keys_c4):
+            raise AssertionError("traverse_lvt_pair_fixed: not config 4's "
+                                 "set")
+
+    g_wp, g_wd = wp.clone(), wd.clone()
+    nrng = np.random.default_rng(9)
+    new_rays = [torch.as_tensor((nrng.random((3, N_WALK_RAYS)) * wscale)
+                                .astype(np.float32), device=dev),
+                torch.as_tensor((nrng.random((3, N_WALK_RAYS)) - 0.5)
+                                .astype(np.float32), device=dev)]
+    keys_walk = hit_keys(tile_hits.num_contacts, tile_hits.cache1, 0,
+                         N_RAY_TRIS, N_WALK_RAYS, "walk rays")
+
+    def ray_check(out):
+        if not torch.equal(hit_keys(out[0], out[1], 0, N_RAY_TRIS,
+                                    N_WALK_RAYS, "captured ray walk"),
+                           keys_walk):
+            raise AssertionError("traverse_rays_fixed: not phase 14's set")
+
+    for label, run, statics, fresh, check, name in (
+            (f"traverse_lvt_single_fixed, {N_RAY_TRIS} leaves, capacity "
+             f"{cap_self}", lambda: ib.traverse_lvt_single_fixed(
+                 g_self, cap_self), bvh_tensors(g_self), moved_self,
+             self_check("LVT self"), "walk_lanes"),
+            (f"traverse_lvt_pair_fixed, config 4 ({N_PAIR4[0]} x "
+             f"{N_PAIR4[1]} leaves)", lambda: ib.traverse_lvt_pair_fixed(
+                 *g_c4, PAIR4_CAPACITY), bvh_tensors(g_c4[1]), moved_c4,
+             c4_check, "walk_lanes"),
+            (f"traverse_rays_fixed, {N_WALK_RAYS} rays x {N_RAY_TRIS} "
+             "leaves", lambda: ib.traverse_rays_fixed(ray_bvh, g_wp, g_wd,
+                                                      1 << 12),
+             [g_wp, g_wd], new_rays, ray_check, "walk_lanes"),
+            (f"DFS count -> scan -> write, {N_RAY_TRIS} leaves, start "
+             f"level {dfs_sl}", dfs_fixed, bvh_tensors(g_self), moved_self,
+             self_check("DFS"), "dfs_lanes")):
+        ops.reset_launch_counts()
+        check(sync_checked(run))
+        log(f"{label}: no host sync, {launch_counts()[name]} launches of "
+            f"{name}, the independent set")
+        want_launches(graph_cell(label, run, statics, fresh, walk_summary,
+                                 check, (name,)), (name,), label)
+    del g_self, moved_self, g_c4, moved_c4, g_wp, g_wd, new_rays
+
+    # c. times at phases 14 and 17's scenes, each pass's longest lane, and
+    # the rows of the kernels line (write pass, beside its plain version)
+    def test_flops(lane_kind, kind):
+        """Float operations of one test of a lane (0 sphere, 1 box, 2 ray)
+        against a volume of ``kind``; a box lane converts a sphere leaf per
+        test, a sphere lane is converted once."""
+        if lane_kind == 2:
+            return FLOPS_PER_TEST["ray_box" if kind == 1 else "ray_sphere"]
+        if lane_kind == kind == 0:
+            return FLOPS_PER_TEST["sphere"]
+        return FLOPS_PER_TEST["box"] + 6 * (lane_kind == 1 and kind == 0)
+
+    # float32 bytes of one volume's own fields: a sphere (x, r), a box (lo,
+    # up), a ray (p, d); the packed records pad a box or a ray to 32
+    field_bytes = {0: 16, 1: 24, 2: 24}
+
+    def walk_row(row, name, call, n_launches, label, plain_too=True):
+        (args, kw) = call
+        wrapper, plain, source, replaces = kernels[name]
+        # the router passes the lanes positionally and the write pass's
+        # capacity and offsets by keyword: the count pass drops those
+        n_pos = 3 if name == "walk_lanes" else 2
+        if len(args) != n_pos or kw.get("capacity", 0) <= 0:
+            raise AssertionError(f"{row}: the recorded call is not a write "
+                                 f"pass with its capacity by keyword")
+        count_kw = {k: v for k, v in kw.items()
+                    if k not in ("capacity", "offsets")}
+        pack = owalk.pack_walk if name == "walk_lanes" else owalk.pack_dfs
+        a = pack(*args, **kw)
+        steps = []
+        for pkw in (count_kw, kw):
+            diag = torch.zeros((a.K, 3), dtype=torch.int32, device=dev)
+            c, out = wrapper(*args, **pkw, diag=diag)
+            steps.append(int(diag[:, 0].max()))
+        tests = diag.sum(0).tolist()
+        c_ms = time_ms(lambda: wrapper(*args, **count_kw))
+        k_ms = time_ms(lambda: wrapper(*args, **kw))
+        d_ms = device_ms(lambda: wrapper(*args, **kw), device_kernel[name])
+        p_ms = err = None
+        if plain_too:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            pc, pout = plain(*args, **kw)
+            e1.record()
+            e1.synchronize()
+            p_ms = e0.elapsed_time(e1)
+            err = max(int((c.long() - pc.long()).abs().max()),
+                      int((out.long() - pout.long()).abs().max()))
+            if err:
+                raise AssertionError(f"{row}: the kernel differs from its "
+                                     "plain version")
+        total = int(c.sum())
+        written = min(total, a.capacity)
+        # each input once, the volumes by their own fields (a self walk's
+        # lanes are its leaves), the index arrays, the counts and the rows
+        node_kind = a.node_kind
+        lane_kind = a.lane_kind if name == "walk_lanes" else node_kind
+        vols = {a.nodes.data_ptr(): a.nodes.shape[0] * field_bytes[node_kind],
+                a.leaves.data_ptr(): a.leaves.shape[0] *
+                field_bytes[a.leaf_kind]}
+        index = [a.leaf_index, a.skips, a.offsets]
+        if name == "walk_lanes":
+            vols[a.lanes.data_ptr()] = a.K * field_bytes[a.lane_kind]
+            index += [a.lane_index, a.dedup]
+        b = sum(vols.values()) + nbytes(*{
+            t.data_ptr(): t for t in index if t is not None}.values()) + \
+            nbytes(c) + 2 * written * c.element_size()
+        ops_n = tests[1] * test_flops(lane_kind, node_kind) + \
+            tests[2] * test_flops(
+                lane_kind if name == "walk_lanes" else a.leaf_kind,
+                a.leaf_kind)
+        bytes_ms = b / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_n / FP32_OPS_PER_S * 1e3
+        b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
+            (ops_ms, "operations")
+        log(f"time: {row}, {label}: count pass {c_ms:.4f} ms, write pass "
+            f"{k_ms:.4f} ms (CUDA events, median of 7; device "
+            f"{fmt_ms(d_ms)}), plain write pass "
+            f"{'not run' if p_ms is None else f'{p_ms:.1f} ms once'}; "
+            f"{a.K} lanes, {total} contacts, longest lane {steps[0]} / "
+            f"{steps[1]} steps (count / write: a chain of as many dependent "
+            f"record loads), {tests[1]} node and {tests[2]} leaf tests; "
+            f"launches {n_launches}, bound {b_ms:.6f} ms ({b_by}; bytes "
+            f"{bytes_ms:.6f}, operations {ops_ms:.6f}) [{card}]")
+        if plain_too:
+            rows.append({"name": row, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": n_launches,
+                         "max_abs_err": err, "ms": k_ms, "device_ms": d_ms,
+                         "plain_ms": p_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bound_bytes_ms": bytes_ms,
+                         "bound_operations_ms": ops_ms, "library_ms": None,
+                         "count_pass_ms": c_ms,
+                         "longest_lane_steps": steps[1]})
+
+    for row, (call, n_launches) in walk_seen.items():
+        walk_row(row, "walk_lanes", call, n_launches, "phase 14's scene")
+    for k, (label, (call, n_launches)) in enumerate(dfs_seen.items()):
+        # the plain loop at 1M would take minutes: that scene is timed
+        # without it and gives no row
+        walk_row("dfs_lanes[self]", "dfs_lanes", call, n_launches, label,
+                 plain_too=k == 0)
+    log(f"time: phase 23 (the walks on the device) "
+        f"{time.perf_counter() - t23:.1f} s; the script "
+        f"{time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -407,6 +407,63 @@ inline int persistent_blocks(Kern kern, int threads, size_t shmem,
   return (int)std::max(1LL, std::min((long long)full, cap));
 }
 
+// ---------------------------------------------------------------------------
+// Volume records of the walk kernels (W1 walk.cu, W2 dfs.cu), one row per
+// volume as ops/walk.py packs them: a sphere (x0, x1, x2, r) is one float4,
+// a box (lo0, lo1, lo2, up0 | up1, up2, 0, 0) two.  Into v[4] or v[6].
+template <int KIND>
+__device__ __forceinline__ void load_volume(const float4* __restrict__ recs,
+                                            long long i, float* v) {
+  if constexpr (KIND == SPHERE) {
+    const float4 a = __ldg(recs + i);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else {
+    const float4 a = __ldg(recs + 2 * i);
+    const float4 b = __ldg(recs + 2 * i + 1);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+    v[4] = b.x;
+    v[5] = b.y;
+  }
+}
+
+// The box of a sphere s = (x0, x1, x2, r): c - r and c + r, each rounded
+// on its own (volumes.bbox_of_bsphere).
+__device__ __forceinline__ void box_of_sphere(const float* s, float* b) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b[k] = __fsub_rn(s[k], s[3]);
+    b[3 + k] = __fadd_rn(s[k], s[3]);
+  }
+}
+
+// volumes.iscontact of two volumes of kinds KA and KB: spheres by
+// sphere_hit, anything else by box_hit, a sphere through its box.
+template <int KA, int KB>
+__device__ __forceinline__ bool volumes_hit(const float* a, const float* b) {
+  if constexpr (KA == SPHERE && KB == SPHERE) {
+    return sphere_hit(a, b);
+  } else {
+    float ab[6], bb[6];
+    const float* pa = a;
+    const float* pb = b;
+    if constexpr (KA == SPHERE) {
+      box_of_sphere(a, ab);
+      pa = ab;
+    }
+    if constexpr (KB == SPHERE) {
+      box_of_sphere(b, bb);
+      pb = bb;
+    }
+    return box_hit(pa, pb);
+  }
+}
+
 // Calls FN<KIND, k, WARP>(...) with k = per_thread_of(G) and WARP set when
 // a team of G / k threads is one warp.
 #define IBVH_DISPATCH_TEAM(G, FN, ...)                  \

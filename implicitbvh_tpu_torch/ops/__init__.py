@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels of the tile engine and their plain versions."""
+"""Hand-written CUDA kernels of the tile engine (B1-B6), with their plain
+versions, and of the walks (W1, W2), whose plain versions are the traverse
+layer's torch-op loops."""
 
 from .compaction import (compact_flat, compact_flat_plain, finish_compact,
                          tile_compact, tile_compact_plain)
@@ -9,10 +11,11 @@ from .tile_contact import (emit_plan, emit_plan_plain, run_live_pairs,
                            tile_group_emit, tile_group_emit_plain,
                            tile_pair_contacts, tile_pair_contacts_plain,
                            tile_run_counts, tile_run_counts_plain)
+from .walk import dfs_lanes, walk_lanes
 
 KERNELS = (subtile_band_bits, tile_run_counts, tile_group_emit,
            tile_group_contacts, tile_compact, tile_pair_contacts,
-           compact_flat, emit_plan)
+           compact_flat, emit_plan, walk_lanes, dfs_lanes)
 
 
 def reset_launch_counts():
@@ -21,11 +24,12 @@ def reset_launch_counts():
         k.launches = 0
 
 
-__all__ = ["KERNELS", "compact_flat", "compact_flat_plain", "emit_plan",
+__all__ = ["KERNELS", "compact_flat", "compact_flat_plain", "dfs_lanes",
+           "emit_plan",
            "emit_plan_plain", "finish_compact", "reset_launch_counts",
            "run_live_pairs", "subtile_band_bits", "subtile_band_bits_plain",
            "tile_compact", "tile_compact_plain", "tile_group_contacts",
            "tile_group_contacts_plain", "tile_group_emit",
            "tile_group_emit_plain", "tile_pair_contacts",
            "tile_pair_contacts_plain", "tile_run_counts",
-           "tile_run_counts_plain"]
+           "tile_run_counts_plain", "walk_lanes"]

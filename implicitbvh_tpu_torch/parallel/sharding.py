@@ -27,9 +27,9 @@ package's ``(total, contacts, counts, overflow)``: ``total`` the global
 count, ``contacts`` and ``counts`` ``DTensor``\\ s sharded on dim 0 (global
 shapes ``(n_dev * capacity_per_device, 2)`` and ``(n_dev,)``; ``.to_local()``
 gives the rank's slice, ``.full_tensor()`` the JAX package's global array)
-and ``overflow`` a bool tensor.  The local tile functions make no host
-sync; the walk ends its loop with one sync per 32 steps
-(``traverse/walk.py``).
+and ``overflow`` a bool tensor.  The local functions make no host sync:
+on the card the walks are kernel W1 (``traverse/walk.py``), unless a
+``narrow`` callback takes the torch-op loop, which ends on a host read.
 """
 
 from __future__ import annotations
@@ -41,11 +41,11 @@ import torch.distributed as dist
 
 from ..build import BVH, build
 from ..raytrace import _prep_rays, _walk_rays
-from ..traverse.lvt import _scan, _single_closures, default_start_level_lvt
+from ..traverse.lvt import _scan, default_start_level_lvt
 from ..traverse.tiles import (TileTraversal, _pair_capacity_for,
                               _phase1_superpairs, _run_step_cap, _step_caps,
                               _tiled_fields, _two_phase_slice)
-from ..traverse.walk import stackless_walk
+from ..traverse.walk import route_walk
 from ..utils import resolve_device
 from ..volumes import BBox, BSphere
 
@@ -107,15 +107,15 @@ def _local_sharded_self_contact(bvh: BVH, capacity_per_device: int,
     per_dev = n // n_dev
     lo = rank * per_dev
     leaf_base = (1 << (bvh.tree.levels - 1)) - 1
-    # the pruning rule needs the lanes' global sorted positions
+    # the pruning rule needs the lanes' global sorted positions; the lane
+    # slice is a view, packed on the device by the walk
     dedup = torch.arange(lo + 1, lo + per_dev + 1, dtype=bvh.skips.dtype,
                          device=bvh.device) + leaf_base
-    closures = _single_closures(bvh, narrow, bvh.leaves[lo:lo + per_dev])
+    lanes = bvh.leaves[lo:lo + per_dev]
 
     def walk(**kw):
-        return stackless_walk(bvh.tree, bvh.nodes, bvh.leaves, bvh.skips,
-                              start_level, *closures, num_lanes=per_dev,
-                              dedup_ileaf=dedup, **kw)
+        return route_walk(bvh, start_level, lanes, dedup_ileaf=dedup,
+                          narrow=narrow, **kw)
 
     offsets, total = _scan(walk()[0])
     out = walk(capacity=capacity_per_device, offsets=offsets)[1]
@@ -126,7 +126,7 @@ def sharded_self_contact(mesh, bvh: BVH, capacity_per_device: int,
                          start_level: Optional[int] = None, narrow=None,
                          axis: str = AXIS):
     """Self-contact by the stackless walk with the leaf lanes split over
-    ``mesh`` (any density; the loop syncs with the host).
+    ``mesh`` (any density; kernel W1 on the card).
 
     Returns ``(total, contacts, counts, overflow)``: the global contact
     count; the ``(n_dev * capacity_per_device, 2)`` contact ``DTensor``

@@ -4,7 +4,8 @@ Counterpart of ``implicitbvh_tpu/raytrace.py``.  ``traverse_rays`` validates
 its input and dispatches to the tile ray engine (``traverse/ray_tiles.py``,
 the default) or, with ``LVTTraversal()``, to the stackless leaf-vs-tree
 walk of ``traverse/walk.py`` with one lane per ray and ``isintersection``
-as the test (torch ops, no kernel; its loop syncs with the host);
+as the test (kernel W1 on the card, no host sync; the torch-op loop, which
+syncs with the host, for CPU tensors or a ``narrow`` callback);
 ``DFSTraversal()`` takes the same walk, as in the JAX package; with
 ``BFSTraversal()`` the node-ray frontier of ``traverse/bfs.py``.
 """
@@ -15,15 +16,14 @@ from typing import Optional
 
 import torch
 
-from .build import BVH, Leaves
+from .build import BVH
 from .options import DEFAULT_OPTIONS, BVHOptions
 from .traverse.bfs import traverse_rays_bfs
 from .traverse.lvt import _empty_traversal, _round_capacity, _scan
 from .traverse.tiles import TileTraversal
 from .traverse.types import (BFSTraversal, BVHTraversal, DFSTraversal,
                              LVTTraversal, TraversalAlgorithm)
-from .traverse.walk import stackless_walk
-from .volumes import isintersection
+from .traverse.walk import route_walk
 
 
 def _prep_rays(points, directions, dtype, device):
@@ -38,35 +38,13 @@ def _prep_rays(points, directions, dtype, device):
     return tuple(points), tuple(directions)
 
 
-def _ray_closures(bvh: BVH, points, directions, narrow, ray_offset: int = 0):
-    """Node test, leaf test and emitter of the ray walk; ``points`` and
-    ``directions`` are coordinate tuples of (K,) lane tensors, whose 1-based
-    ray indices start at ``ray_offset + 1``."""
-
-    def node_test(node_vol):
-        return isintersection(node_vol, points, directions)
-
-    def leaf_test(leaf: Leaves):
-        hit = isintersection(leaf.volume, points, directions)
-        if narrow is not None:
-            hit = hit & narrow(leaf, points, directions)
-        return hit
-
-    iray = torch.arange(ray_offset + 1, ray_offset + points[0].shape[0] + 1,
-                        dtype=bvh.skips.dtype, device=bvh.device)
-
-    def emit(leaf: Leaves):
-        return torch.stack([leaf.index, iray], dim=-1)
-
-    return node_test, leaf_test, emit
-
-
 def _walk_rays(bvh: BVH, points, directions, start_level: int, narrow,
                ray_offset: int = 0, **kw):
-    return stackless_walk(
-        bvh.tree, bvh.nodes, bvh.leaves, bvh.skips, start_level,
-        *_ray_closures(bvh, points, directions, narrow, ray_offset),
-        num_lanes=points[0].shape[0], **kw)
+    """The ray walk: ``points`` and ``directions`` are coordinate tuples of
+    (K,) lane tensors, whose 1-based ray indices start at ``ray_offset +
+    1``."""
+    return route_walk(bvh, start_level, (points, directions),
+                      ray_offset=ray_offset, narrow=narrow, **kw)
 
 
 def rays_count(bvh: BVH, points, directions, start_level: int, narrow=None):
@@ -85,8 +63,9 @@ def traverse_rays_fixed(bvh: BVH, points, directions, capacity: int, *,
                         start_level: int = 1, narrow=None):
     """Fixed-capacity stackless ray walk; returns ``(total, contacts)`` as
     tensors on the BVH's device, contacts ``(leaf user index, 1-based ray
-    index)`` ray by ray.  ``points``/``directions`` are (3, N).  The walk's
-    loop syncs with the host; the sync-free fixed path is
+    index)`` ray by ray.  ``points``/``directions`` are (3, N).  No host
+    sync on the card unless ``narrow`` is given (``traverse/walk.py``);
+    the tile engine's fixed path is
     :func:`~.traverse.ray_tiles.traverse_rays_tiles_fixed`."""
     p, d = _prep_rays(points, directions, bvh.leaves.volume.dtype, bvh.device)
     counts = rays_count(bvh, p, d, start_level, narrow)

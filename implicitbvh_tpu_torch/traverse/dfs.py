@@ -1,20 +1,27 @@
 """Depth-first (DFS) self-contact traversal.
 
-Counterpart of ``implicitbvh_tpu/traverse/dfs.py:53-164``, in torch ops
-(no kernel).  Every lane is one initial BVTT pair at ``start_level`` and
-carries its own stack of pending (i1, i2) implicit pairs in one (lanes,
-DEPTH, 2) tensor.  All lanes advance in lockstep: pop, one vectorised
-``iscontact``, a masked 4-way push (the four children in one scatter, each
-at the stack pointer plus the number of children pushed before it).
-Output takes the LVT walk's two passes: a count pass, an exclusive scan of
-the per-lane counts, and a write pass at those offsets.  Contact sets
-equal the LVT walk's and BFS's.
+Counterpart of ``implicitbvh_tpu/traverse/dfs.py:53-164``.  Every lane is
+one initial BVTT pair at ``start_level`` and carries its own stack of
+pending (i1, i2) implicit pairs: pop, ``iscontact``, a 4-way push.  Output
+takes the LVT walk's two passes: a count pass, an exclusive scan of the
+per-lane counts, and a write pass at those offsets.  Contact sets equal
+the LVT walk's and BFS's.
 
-The JAX package runs the loop on the device (``lax.while_loop``).  Torch
-has no such loop, so the end test ``any(sp > 0)`` is a host sync.  A step
-leaves a lane whose stack is empty alone (``active`` gates every push,
-count and write), so the body runs in blocks of ``BLOCK_STEPS`` steps with
-one test per block, as ``walk.py`` does; ``dfs_single_fixed.steps`` and
+The JAX package runs the loop on the device (``lax.while_loop``).
+:func:`dfs_single_fixed` is the pass's one router.  On the card with no
+``narrow`` it runs kernel W2 (``ops.dfs_lanes``, ``csrc/dfs.cu``; float32
+volumes only): one thread per lane, each with its stack in local memory,
+looping until its stack is empty; no host sync, and a CUDA graph captures
+the count, the scan and the write.  For CPU tensors, and with a ``narrow``
+callback (Python, which no kernel can call) on every device, the pass is
+W2's plain version :func:`dfs_lanes_plain`, the torch-op loop: all lanes
+in lockstep with their stacks in one (lanes, DEPTH, 2) tensor, a masked
+4-way push (the four children in one scatter, each at the stack pointer
+plus the number of children pushed before it).  Torch has no device-side
+loop, so its end test ``any(sp > 0)`` is a host sync.  A step leaves a
+lane whose stack is empty alone (``active`` gates every push, count and
+write), so the body runs in blocks of ``BLOCK_STEPS`` steps with one test
+per block, as ``walk.py`` does; ``dfs_single_fixed.steps`` and
 ``dfs_single_fixed.syncs`` count the steps run and the tests made.
 
 The sprouting rules are single-tree BFS's: i1 < i2 for pair checks, so
@@ -27,6 +34,8 @@ from __future__ import annotations
 import torch
 
 from ..build import BVH
+from ..ops._build import cuda_device
+from ..ops.walk import dfs_lanes, stack_depth
 from ..options import DEFAULT_OPTIONS, BVHOptions
 from ..utils import floor_ilog2
 from ..volumes import iscontact
@@ -37,12 +46,6 @@ from .types import BVHTraversal
 from .walk import BLOCK_STEPS
 
 
-def _stack_depth(levels: int, start_level: int) -> int:
-    """Stack slots a lane needs: each pop that pushes removes one slot and
-    adds at most four, one level down."""
-    return 3 * max(levels - start_level, 1) + 4
-
-
 def dfs_single_fixed(bvh: BVH, start_level: int, capacity: int = 0,
                      offsets=None, narrow=None):
     """One DFS pass over all lanes; returns ``(counts, out)``.
@@ -50,9 +53,23 @@ def dfs_single_fixed(bvh: BVH, start_level: int, capacity: int = 0,
     ``capacity == 0``: the counting pass (``out`` is one zero row).  With
     ``capacity`` and per-lane ``offsets``: the write pass, which scatters
     sorted ``(min, max)`` user-index pairs at ``offsets[lane] + (the lane's
-    running count)``; rows at or past ``capacity`` are dropped.  The loop's
-    end test syncs with the host once per ``BLOCK_STEPS`` steps.
+    running count)``; rows at or past ``capacity`` are dropped.  On the
+    card with no ``narrow``: kernel W2 (``ops.dfs_lanes``, no host sync).
+    For CPU tensors, and with ``narrow`` on every device:
+    :func:`dfs_lanes_plain`, whose end test syncs with the host once per
+    ``BLOCK_STEPS`` steps.
     """
+    if narrow is None and cuda_device(bvh.skips):
+        return dfs_lanes(bvh, start_level, capacity=capacity,
+                         offsets=offsets)
+    return dfs_lanes_plain(bvh, start_level, capacity=capacity,
+                           offsets=offsets, narrow=narrow)
+
+
+def dfs_lanes_plain(bvh: BVH, start_level: int, capacity: int = 0,
+                    offsets=None, narrow=None):
+    """The torch-op loop of :func:`dfs_single_fixed`, on any device (W2's
+    plain version, and the ``narrow`` route)."""
     tree = bvh.tree
     idt = bvh.skips.dtype
     levels = tree.levels
@@ -60,7 +77,7 @@ def dfs_single_fixed(bvh: BVH, start_level: int, capacity: int = 0,
 
     i1_0, i2_0 = _initial_bvtt_single(bvh, start_level, idt)
     lanes = i1_0.shape[0]
-    DEPTH = _stack_depth(levels, start_level)
+    DEPTH = stack_depth(levels, start_level)
 
     # the stacks hold the pending pairs, slot 0 seeded with the lane's own
     # pair; one slot past DEPTH takes the pushes that are dropped
@@ -74,8 +91,10 @@ def dfs_single_fixed(bvh: BVH, start_level: int, capacity: int = 0,
     if offsets is None:
         offsets = torch.zeros((lanes,), dtype=idt, device=dev)
     lane_ids = torch.arange(lanes, device=dev)
-    # child offsets of the four pushes, in push order: ll, lr, rl, rr
-    sprout = torch.tensor([[0, 0], [0, 1], [1, 0], [1, 1]], dtype=idt).to(dev)
+    # child offsets of the four pushes, in push order: ll, lr, rl, rr (made
+    # on the device: (k >> 1, k & 1) for k = 0..3)
+    k4 = torch.arange(4, dtype=idt, device=dev)
+    sprout = torch.stack([k4 >> 1, k4 & 1], 1)
 
     def body(st, sp, counts):
         active = sp > 0

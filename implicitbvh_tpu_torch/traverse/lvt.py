@@ -1,10 +1,12 @@
 """Leaf-vs-tree traversal (one BVH, and BVH against BVH).
 
 Counterpart of ``implicitbvh_tpu/traverse/lvt.py``: one lane per leaf walks
-the tree with the stackless walk of ``walk.py`` (torch ops, no kernel), in
-a count pass, an exclusive scan of the per-lane counts, and a write pass at
-those offsets.  Unlike the JAX package's, the ``*_fixed`` functions here
-sync with the host to end the walk's loop (see ``walk.py``).
+the tree with the stackless walk of ``walk.py``, in a count pass, an
+exclusive scan of the per-lane counts, and a write pass at those offsets.
+On the card with no ``narrow`` the walk is kernel W1, so the ``*_fixed``
+functions make no host sync and a CUDA graph captures them, as the JAX
+package's jit them; with ``narrow`` the walk is the torch-op loop, which
+syncs with the host (``walk.py``).
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ import torch
 
 from ..build import BVH, Leaves
 from ..options import BVHOptions
-from ..volumes import convert_volume, iscontact
 from .types import BVHTraversal
-from .walk import stackless_walk
+from .walk import route_walk
 
 
 def default_start_level_lvt(bvh: BVH) -> int:
@@ -52,36 +53,13 @@ def _scan(counts):
 # One BVH: self-contact
 # --------------------------------------------------------------------------
 
-def _single_closures(bvh: BVH, narrow, lanes: Optional[Leaves] = None):
-    """Node test, leaf test and emitter for the leaf lanes ``lanes`` (all
-    N leaves by default)."""
-    q = bvh.leaves if lanes is None else lanes
-    q_node_vol = convert_volume(bvh.node_kind, q.volume)
-
-    def node_test(node_vol):
-        return iscontact(q_node_vol, node_vol)
-
-    def leaf_test(leaf: Leaves):
-        hit = iscontact(q.volume, leaf.volume)
-        if narrow is not None:
-            hit = hit & narrow(q, leaf)
-        return hit
-
-    def emit(leaf: Leaves):       # sorted (min, max) user-index pairs
-        return torch.stack([torch.minimum(q.index, leaf.index),
-                            torch.maximum(q.index, leaf.index)], dim=-1)
-
-    return node_test, leaf_test, emit
-
-
 def _walk_single(bvh: BVH, start_level: int, narrow, **kw):
     n = bvh.num_leaves
     leaf_base = (1 << (bvh.tree.levels - 1)) - 1
     dedup = torch.arange(1, n + 1, dtype=bvh.skips.dtype,
                          device=bvh.device) + leaf_base
-    return stackless_walk(
-        bvh.tree, bvh.nodes, bvh.leaves, bvh.skips, start_level,
-        *_single_closures(bvh, narrow), num_lanes=n, dedup_ileaf=dedup, **kw)
+    return route_walk(bvh, start_level, bvh.leaves, dedup_ileaf=dedup,
+                      narrow=narrow, **kw)
 
 
 def lvt_count_single(bvh: BVH, start_level: int, narrow=None):
@@ -102,7 +80,8 @@ def traverse_lvt_single_fixed(bvh: BVH, capacity: int, *,
 
     Returns ``(total, contacts)`` as tensors on the BVH's device; the first
     ``min(total, capacity)`` rows of ``contacts`` hold sorted ``(min, max)``
-    user-index pairs.  The walk's loop syncs with the host."""
+    user-index pairs.  No host sync on the card unless ``narrow`` is
+    given (``walk.py``)."""
     if start_level is None:
         start_level = default_start_level_lvt(bvh)
     counts = lvt_count_single(bvh, start_level, narrow)
@@ -115,43 +94,15 @@ def traverse_lvt_single_fixed(bvh: BVH, capacity: int, *,
 # BVH against BVH
 # --------------------------------------------------------------------------
 
-def _pair_closures(lanes: Leaves, target: BVH, narrow, flip: bool):
-    q = lanes
-    q_node_vol = convert_volume(target.node_kind, q.volume)
-
-    def node_test(node_vol):
-        return iscontact(q_node_vol, node_vol)
-
-    def leaf_test(leaf: Leaves):
-        hit = iscontact(q.volume, leaf.volume)
-        if narrow is not None:
-            hit = hit & (narrow(leaf, q) if flip else narrow(q, leaf))
-        return hit
-
-    def emit(leaf: Leaves):       # tree order (index in bvh1, index in bvh2)
-        if flip:
-            return torch.stack([leaf.index, q.index], dim=-1)
-        return torch.stack([q.index, leaf.index], dim=-1)
-
-    return node_test, leaf_test, emit
-
-
-def _walk_pair(lanes: Leaves, target: BVH, start_level2: int, narrow, flip,
-               **kw):
-    return stackless_walk(
-        target.tree, target.nodes, target.leaves, target.skips, start_level2,
-        *_pair_closures(lanes, target, narrow, flip),
-        num_lanes=lanes.index.shape[0], **kw)
-
-
 def lvt_count_pair(lanes: Leaves, target: BVH, start_level2: int,
                    narrow=None, flip: bool = False):
-    return _walk_pair(lanes, target, start_level2, narrow, flip)[0]
+    return route_walk(target, start_level2, lanes, flip=flip,
+                      narrow=narrow)[0]
 
 
 def lvt_write_pair(lanes: Leaves, target: BVH, offsets, start_level2: int,
                    capacity: int, narrow=None, flip: bool = False):
-    return _walk_pair(lanes, target, start_level2, narrow, flip,
+    return route_walk(target, start_level2, lanes, flip=flip, narrow=narrow,
                       capacity=capacity, offsets=offsets)[1]
 
 
@@ -171,8 +122,8 @@ def traverse_lvt_pair_fixed(bvh1: BVH, bvh2: BVH, capacity: int, *,
                             narrow=None):
     """Fixed-capacity LVT pair traversal; returns ``(total, contacts)``,
     contacts in tree order ``(index in bvh1, index in bvh2)`` whichever
-    tree is walked, and ``narrow`` called in that order too.  The walk's
-    loop syncs with the host."""
+    tree is walked, and ``narrow`` called in that order too.  No host sync
+    on the card unless ``narrow`` is given (``walk.py``)."""
     if start_level1 is None:
         start_level1 = default_start_level_lvt(bvh1)
     if start_level2 is None:

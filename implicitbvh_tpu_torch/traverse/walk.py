@@ -1,8 +1,7 @@
 """Stackless leaf-vs-tree walk: the core of the LVT traversals.
 
-Counterpart of ``implicitbvh_tpu/traverse/walk.py:35-141``, in torch ops
-(no kernel of its own).  Every lane (a leaf or a ray) carries only its
-current implicit node index and all lanes advance in lockstep:
+Counterpart of ``implicitbvh_tpu/traverse/walk.py:35-141``.  Every lane (a
+leaf or a ray) carries only its current implicit node index:
 
 - on a hit at a node level, descend to the left child (``inode * 2``);
 - otherwise climb over the trailing ones of the index (the right-child
@@ -14,13 +13,25 @@ current implicit node index and all lanes advance in lockstep:
 Output takes two passes, count and write: the write pass scatters each
 lane's contacts at ``offsets[lane] + running count``.
 
-The JAX package runs the loop on the device (``lax.while_loop``).  Torch has
-no such loop, so the test ``any(inode > 0)`` that ends it is a host sync.
-Lanes that are done stay at 0 and a step leaves them alone, so the body
-runs in blocks of ``BLOCK_STEPS`` steps with one test per block: the result
-is that of testing every step, at most ``BLOCK_STEPS - 1`` idle steps
-later.  ``stackless_walk.steps`` and ``stackless_walk.syncs`` count the
-steps run and the tests made.
+:func:`route_walk`, the walk's one router, takes a declarative lane spec
+(leaf lanes or rays, the dedup prune of self-contact, ``flip``, the ray
+offset).  On the card with no ``narrow`` it launches kernel W1
+(``ops.walk_lanes``, ``csrc/walk.cu``): one thread per lane looping until
+the lane is done, with no host sync, as the JAX package's
+``lax.while_loop`` runs on the device.  For CPU tensors it runs W1's plain
+version :func:`walk_lanes_plain`, the torch-op loop :func:`stackless_walk`.
+A ``narrow`` callback is Python, which no kernel can call, so with one the
+walk runs :func:`walk_lanes_plain` on every device: an explicit route
+chosen by the argument, not a fallback.  W1 reads float32 records: a
+float64 BVH on the card raises, as the tile engine does.
+
+:func:`stackless_walk` runs all lanes in lockstep in torch ops.  Torch has
+no device-side loop, so the test ``any(inode > 0)`` that ends it is a host
+sync.  Lanes that are done stay at 0 and a step leaves them alone, so the
+body runs in blocks of ``BLOCK_STEPS`` steps with one test per block: the
+result is that of testing every step, at most ``BLOCK_STEPS - 1`` idle
+steps later.  ``stackless_walk.steps`` and ``stackless_walk.syncs`` count
+the steps run and the tests made.
 
 Per-lane shifts are int32: ``(cur + 1) << (levels - level)`` reaches
 ``2^levels``, so trees of up to 30 levels (2^29 leaves) fit.
@@ -32,12 +43,13 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops._build import cuda_device
+from ..ops.walk import MAX_LEVELS, walk_lanes
 from ..tree import ImplicitTree, isvirtual_lanes, memory_index_lanes
 from ..utils import floor_ilog2, trailing_ones
-from ..volumes import Volume
+from ..volumes import Volume, convert_volume, iscontact, isintersection
 
 BLOCK_STEPS = 32        # loop steps between two tests of the end condition
-MAX_LEVELS = 30
 
 
 def stackless_walk(
@@ -131,3 +143,97 @@ def stackless_walk(
 
 stackless_walk.steps = 0
 stackless_walk.syncs = 0
+
+
+def _lane_tests(target, lanes, narrow, flip: bool, self_contact: bool,
+                ray_offset: int):
+    """Node test, leaf test and emitter of ``stackless_walk`` for the lane
+    spec (see :func:`route_walk`)."""
+    if isinstance(lanes, tuple):          # rays
+        points, directions = lanes
+        iray = torch.arange(ray_offset + 1,
+                            ray_offset + points[0].shape[0] + 1,
+                            dtype=target.skips.dtype, device=target.device)
+
+        def node_test(node_vol):
+            return isintersection(node_vol, points, directions)
+
+        def leaf_test(leaf):
+            hit = isintersection(leaf.volume, points, directions)
+            if narrow is not None:
+                hit = hit & narrow(leaf, points, directions)
+            return hit
+
+        def emit(leaf):
+            return torch.stack([leaf.index, iray], dim=-1)
+
+        return node_test, leaf_test, emit
+
+    q = lanes
+    q_node_vol = convert_volume(target.node_kind, q.volume)
+
+    def node_test(node_vol):
+        return iscontact(q_node_vol, node_vol)
+
+    def leaf_test(leaf):
+        hit = iscontact(q.volume, leaf.volume)
+        if narrow is not None:
+            hit = hit & (narrow(leaf, q) if flip else narrow(q, leaf))
+        return hit
+
+    def emit(leaf):
+        if self_contact:          # sorted (min, max) user-index pairs
+            return torch.stack([torch.minimum(q.index, leaf.index),
+                                torch.maximum(q.index, leaf.index)], dim=-1)
+        if flip:                  # tree order: (index in bvh1, in bvh2)
+            return torch.stack([leaf.index, q.index], dim=-1)
+        return torch.stack([q.index, leaf.index], dim=-1)
+
+    return node_test, leaf_test, emit
+
+
+def walk_lanes_plain(target, start_level: int, lanes, *, flip: bool = False,
+                     dedup_ileaf=None, ray_offset: int = 0, narrow=None,
+                     capacity: int = 0, offsets=None):
+    """:func:`stackless_walk` for the lane spec of :func:`route_walk`: the
+    torch-op loop, on any device, with ``narrow`` if given (W1's plain
+    version)."""
+    num_lanes = lanes[0][0].shape[0] if isinstance(lanes, tuple) \
+        else lanes.index.shape[0]
+    return stackless_walk(
+        target.tree, target.nodes, target.leaves, target.skips, start_level,
+        *_lane_tests(target, lanes, narrow, flip, dedup_ileaf is not None,
+                     ray_offset),
+        num_lanes=num_lanes, dedup_ileaf=dedup_ileaf, capacity=capacity,
+        offsets=offsets)
+
+
+def route_walk(target, start_level: int, lanes, *, flip: bool = False,
+               dedup_ileaf=None, ray_offset: int = 0, narrow=None,
+               capacity: int = 0, offsets=None):
+    """One pass of the walk of ``target`` (a BVH) from ``start_level``;
+    returns ``(counts (K,), out (capacity, 2))``.
+
+    The lane spec: ``lanes`` is a ``Leaves`` (leaf volumes and user
+    indices) or a ``(points, directions)`` pair of coordinate 3-tuples of
+    (K,) ray tensors; ``dedup_ileaf`` ((K,) implicit leaf indices) makes it
+    self-contact, with sorted ``(min, max)`` rows and the dedup prune;
+    otherwise rows are ``(lane, leaf)``, ``(leaf, lane)`` with ``flip``, or
+    ``(leaf, ray_offset + k + 1)`` for rays.  ``narrow`` is called as
+    ``narrow(lane, leaf)`` (``narrow(leaf, lane)`` with ``flip``) or
+    ``narrow(leaf, points, directions)``.
+
+    On the card with no ``narrow``: kernel W1 (``ops.walk_lanes``, no host
+    sync; float32 volumes only).  For CPU tensors, and with ``narrow`` on
+    every device: :func:`walk_lanes_plain`, the torch-op loop, which syncs
+    with the host once every ``BLOCK_STEPS`` steps (no kernel can call a
+    Python callback).
+    """
+    if narrow is None and cuda_device(target.skips):
+        return walk_lanes(target, start_level, lanes, flip=flip,
+                          dedup_ileaf=dedup_ileaf, ray_offset=ray_offset,
+                          capacity=capacity, offsets=offsets)
+    return walk_lanes_plain(target, start_level, lanes, flip=flip,
+                            dedup_ileaf=dedup_ileaf, ray_offset=ray_offset,
+                            narrow=narrow, capacity=capacity,
+                            offsets=offsets)
