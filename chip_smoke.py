@@ -14,9 +14,10 @@ count pass and its flat write pass, B4 grouped slots), which small
 capacities and grown slot caps take; both routes of the batch ray query (two-phase: B2
 with a ray mask and moment words, the moment decode, B3 with a ray mask;
 fallback: B4 with a ray mask); the public ``traverse`` dispatch; the
-leaf-vs-tree walks (kernel W1, one thread per lane), where growth past the
-slot caps ends; breadth-first traversal (self, two trees, rays; torch ops)
-and depth-first self-contact (kernel W2, one thread per initial pair).  B6
+leaf-vs-tree walks (kernel W1, few lanes split by subtree), where growth
+past the slot caps ends; breadth-first traversal (self, two trees, rays;
+torch ops) and depth-first self-contact (kernel W2, each lane's stack in
+rounds of work items).  B6
 (per-pair slots of a packed pair list) and ``tile_compact`` (B5's padded
 slots, which ``compact_flat`` replaces on the path) are on no path and are
 held against their plain versions at the path's inputs only.
@@ -191,26 +192,33 @@ held against their plain versions at the path's inputs only.
     sphere nodes and on box leaves, a start-level sweep, two trees both
     ways round, mixed leaf kinds, one-leaf trees, rays with zero and
     axis-aligned direction components on both leaf kinds and on sphere
-    nodes, ``index_bits=64``, DFS at two start levels on each kind), the
-    counts, offsets and whole buffers exactly, a truncating capacity
-    among them; ``traverse_lvt_single_fixed`` and DFS's count -> scan ->
-    write at 2^18 leaves, ``traverse_lvt_pair_fixed`` at config 4 and
+    nodes, ``index_bits=64``, DFS at two start levels on each kind), each
+    in float32 and in float64, and three walks of float64 lanes against
+    float32 trees or the other way round; the counts, offsets and whole
+    buffers exactly, a truncating capacity among them;
+    ``traverse_lvt_single_fixed`` and DFS's count -> scan -> write at 2^18
+    leaves, ``traverse_lvt_pair_fixed`` at config 4 and
     ``traverse_rays_fixed`` at 1,000 rays under the sync check, then
     captured as phase 22's cells and replayed on moved geometry and new
-    rays; and W1's and W2's count and write passes at phases 14 and 17's
-    scenes (CUDA events, median of 7, the profiler's device time), each
-    pass's longest lane in steps and its node and leaf tests, beside the
-    plain loop's write pass once (not at 1M, where it would take
+    rays; W1's and W2's count and write passes at phases 14 and 17's
+    scenes, and W1's LVT self-contact at the bench scene (phase 2's set;
+    the reference library's default algorithm), timed (CUDA events,
+    median of 7, the profiler's device time) with the work's shape from
+    the kernels' diagnostic variant (the longest lane, the longest item,
+    the steps of all lanes, the SMs that ran one, the items), beside the
+    plain loop's write pass once (not for DFS at 1M, where it would take
     minutes).
 
 Each phase group prints its seconds and the script's total so far.
 W1's and W2's rows (``walk_lanes[...]``, ``dfs_lanes[self]``) are their
-write passes at phases 14 and 17's scenes; their bounds count each
+write passes at phases 14, 17 and 23's scenes; their bounds count each
 volume's own float32 fields read once (16 bytes a sphere, 24 a box or a
 ray, not the packed records' padding), the index arrays, the counts and
-the rows written, and the tests' operations; the longest lane's steps (a
-chain of dependent loads, from the kernels' diagnostic variant) stand
-beside them.
+the rows written, and the tests' operations; the work's shape (from the
+kernels' diagnostic variant) stands beside them, with the count pass
+unsplit (W1 in one stage, W2 in one round) and the steps of all lanes
+spread over every thread of every SM at its time per step of the longest
+lane.
 Each row's bound is printed with both of its terms (bytes and operations)
 and with the instruction floor of its operations (twice the operations
 term: the predicates are explicitly rounded, so no operation fuses into an
@@ -424,8 +432,10 @@ def main() -> int:
                      "tile_pair_contacts": ("slot_contacts_kernel",),
                      "compact_flat": ("compact_kernel",
                                       "compact_flat_kernel"),
-                     "walk_lanes": ("walk_kernel",),
-                     "dfs_lanes": ("dfs_kernel",)}
+                     # W1's stages and scan, W2's rounds, sums, places
+                     # and write run: every kernel of each
+                     "walk_lanes": ("walk_",),
+                     "dfs_lanes": ("dfs_",)}
     two_phase_kernels = ("subtile_band_bits", "tile_run_counts",
                          "tile_group_emit")
     fallback_kernels = ("subtile_band_bits", "compact_flat",
@@ -1109,9 +1119,9 @@ def main() -> int:
     check_kernels(seen_pair_fb, f"pair scene ({N_BENCH} x {N_BODY2} leaves, "
                   "fallback)", fallback_kernels, pair=True)
 
-    # 14. the leaf-vs-tree walks on the card: kernel W1, one thread per
-    # lane, no host sync; the parent's torch-op loop synced once every 32
-    # steps
+    # 14. the leaf-vs-tree walks on the card: kernel W1 (few lanes split by
+    # subtree), no host sync; the parent's torch-op loop synced once every
+    # 32 steps
     walk_seen = {}     # row of the kernels line -> (W1's write-pass call,
                        # the launches of its run)
 
@@ -1663,8 +1673,8 @@ def main() -> int:
         f"{keys_union.numel()} pairs, {TPU_RAY_HITS} hits)")
     t_bfs = time.perf_counter() - t_new
 
-    # 17. depth-first self-contact on the card: kernel W2, one thread per
-    # initial BVTT pair with its stack in local memory, no host sync; the
+    # 17. depth-first self-contact on the card: kernel W2, each lane's
+    # stack in rounds of work items, no host sync; the
     # tile engine's set on the ray scene's BVH, then phase 2's at 1M
     dfs_seen = {}      # label -> (W2's write-pass call, its launches)
 
@@ -2579,22 +2589,24 @@ def main() -> int:
     from implicitbvh_tpu_torch.ops import walk as owalk
     from implicitbvh_tpu_torch.traverse.lvt import _scan
 
-    # a. every variant on small scenes, kernel against plain, exactly
-    def scene(n, seed, box=False, node_kind=ib.BBox, options=None):
+    # a. every variant on small scenes, kernel against plain, exactly, in
+    # float32 and in float64, and in mixed precisions
+    def scene(n, seed, box=False, node_kind=ib.BBox, options=None,
+              dtype=np.float32):
         """n spheres (or their boxes) at about unit density."""
         rng = np.random.default_rng(seed)
-        x = (rng.random((n, 3)) * float(n) ** (1 / 3)).astype(np.float32)
-        r = (rng.random(n) * 0.4 + 0.3).astype(np.float32)
+        x = (rng.random((n, 3)) * float(n) ** (1 / 3)).astype(dtype)
+        r = (rng.random(n) * 0.4 + 0.3).astype(dtype)
         sph = ib.BSphere(x, r, device=dev)
         return ib.build(boxes_of(sph) if box else sph, node_kind,
                         options=options or ib.DEFAULT_OPTIONS)
 
-    def ray_lanes(k, seed, scale):
+    def ray_lanes(k, seed, scale, dtype=np.float32):
         """Rays with zero direction components, some along an axis, some
         starting in a coordinate plane."""
         rng = np.random.default_rng(seed)
-        p = (rng.random((3, k)) * scale).astype(np.float32)
-        d = (rng.random((3, k)) - 0.5).astype(np.float32)
+        p = (rng.random((3, k)) * scale).astype(dtype)
+        d = (rng.random((3, k)) - 0.5).astype(dtype)
         d[0, :k // 4] = 0.0
         d[1, k // 8:k // 3] = 0.0
         d[:2, k // 2:k // 2 + k // 8] = 0.0
@@ -2606,45 +2618,63 @@ def main() -> int:
         return torch.arange(1, b.num_leaves + 1, dtype=b.skips.dtype,
                             device=dev) + (1 << (b.tree.levels - 1)) - 1
 
-    va = scene(1200, 1)
-    vs = scene(800, 2, node_kind=ib.BSphere)
-    vb = scene(1000, 3, box=True)
-    v64 = scene(1200, 1, options=ib.BVHOptions(index_bits=64))
-    vt = scene(700, 4)
-    vtb = scene(600, 5, box=True)
-    one = ib.build(ib.BSphere(torch.full((1, 3), 4.0, device=dev),
-                              torch.full((1,), 3.0, device=dev)))
-    vr = ray_lanes(150, 6, float(1200) ** (1 / 3))
     variants = []          # (label, kernel, args, kw, truncate)
-    for lab, b, sls in (("self, box nodes", va, range(1, va.tree.levels + 1)),
-                        ("self, sphere nodes", vs, (1, 5)),
-                        ("self, box leaves", vb, (1, 6)),
-                        ("self, index_bits=64", v64, (1, 4))):
-        for sl in sls:
-            variants.append((f"W1 {lab}, start level {sl}", "walk_lanes",
-                             (b, sl, b.leaves),
-                             dict(dedup_ileaf=dedup_of(b)), sl == 1))
+    i64 = ib.BVHOptions(index_bits=64)
+    for dt, tag in ((np.float32, ""), (np.float64, ", float64")):
+        va = scene(1200, 1, dtype=dt)
+        vs = scene(800, 2, node_kind=ib.BSphere, dtype=dt)
+        vb = scene(1000, 3, box=True, dtype=dt)
+        v64 = scene(1200, 1, options=i64, dtype=dt)
+        vt = scene(700, 4, dtype=dt)
+        vtb = scene(600, 5, box=True, dtype=dt)
+        tdt = torch.float64 if dt == np.float64 else torch.float32
+        one = ib.build(ib.BSphere(
+            torch.full((1, 3), 4.0, dtype=tdt, device=dev),
+            torch.full((1,), 3.0, dtype=tdt, device=dev)))
+        vr = ray_lanes(150, 6, float(1200) ** (1 / 3), dt)
+        for lab, b, sls in (
+                ("self, box nodes", va, range(1, va.tree.levels + 1)),
+                ("self, sphere nodes", vs, (1, 5)),
+                ("self, box leaves", vb, (1, 6)),
+                ("self, index_bits=64", v64, (1, 4))):
+            for sl in sls:
+                variants.append((f"W1 {lab}, start level {sl}{tag}",
+                                 "walk_lanes", (b, sl, b.leaves),
+                                 dict(dedup_ileaf=dedup_of(b)), sl == 1))
+        for lab, q, t, flip in (
+                ("two trees", va, vt, False),
+                ("two trees flipped", vt, va, True),
+                ("mixed, sphere lanes and box leaves", va, vtb, False),
+                ("mixed, box lanes and sphere leaves", vb, vt, True),
+                ("one-leaf lane tree", one, vt, True),
+                ("one-leaf target tree", vt, one, False)):
+            variants.append((f"W1 {lab}{tag}", "walk_lanes", (t, 1, q.leaves),
+                             dict(flip=flip), lab == "two trees"))
+        for lab, b in (("sphere leaves", va), ("box leaves", vb),
+                       ("sphere nodes", vs), ("index_bits=64", v64)):
+            variants.append((f"W1 rays, {lab}{tag}", "walk_lanes", (b, 1, vr),
+                             dict(ray_offset=7), lab == "box leaves"))
+        dfs_scenes = (("box nodes", scene(300, 7, dtype=dt)),
+                      ("sphere nodes", scene(300, 8, node_kind=ib.BSphere,
+                                             dtype=dt)),
+                      ("box leaves", scene(300, 9, box=True, dtype=dt)),
+                      ("index_bits=64", scene(300, 7, options=i64,
+                                              dtype=dt)))
+        for lab, b in dfs_scenes:
+            for sl in (b.tree.levels // 2, b.tree.levels - 2):
+                variants.append((f"W2 {lab}, start level {sl}{tag}",
+                                 "dfs_lanes", (b, sl), {},
+                                 sl == b.tree.levels // 2))
+        if dt == np.float32:
+            f32 = (va, vt, vb)
+    # float64 lanes against float32 trees and the other way round: the
+    # walk runs in float64, each sphere's box rounded in its own type
     for lab, q, t, flip in (
-            ("two trees", va, vt, False), ("two trees flipped", vt, va, True),
-            ("mixed, sphere lanes and box leaves", va, vtb, False),
-            ("mixed, box lanes and sphere leaves", vb, vt, True),
-            ("one-leaf lane tree", one, vt, True),
-            ("one-leaf target tree", vt, one, False)):
-        variants.append((f"W1 {lab}", "walk_lanes", (t, 1, q.leaves),
-                         dict(flip=flip), lab == "two trees"))
-    for lab, b in (("sphere leaves", va), ("box leaves", vb),
-                   ("sphere nodes", vs), ("index_bits=64", v64)):
-        variants.append((f"W1 rays, {lab}", "walk_lanes", (b, 1, vr),
-                         dict(ray_offset=7), lab == "box leaves"))
-    dfs_scenes = (("box nodes", scene(300, 7)),
-                  ("sphere nodes", scene(300, 8, node_kind=ib.BSphere)),
-                  ("box leaves", scene(300, 9, box=True)),
-                  ("index_bits=64", scene(300, 7, options=ib.BVHOptions(
-                      index_bits=64))))
-    for lab, b in dfs_scenes:
-        for sl in (b.tree.levels // 2, b.tree.levels - 2):
-            variants.append((f"W2 {lab}, start level {sl}", "dfs_lanes",
-                             (b, sl), {}, sl == b.tree.levels // 2))
+            ("float64 sphere lanes, float32 tree", va, f32[1], True),
+            ("float32 sphere lanes, float64 tree", f32[0], vt, False),
+            ("float32 box lanes, float64 sphere leaves", f32[2], vt, True)):
+        variants.append((f"W1 mixed precisions, {lab}", "walk_lanes",
+                         (t, 1, q.leaves), dict(flip=flip), True))
     n_checked = 0
     for label, name, args, kw, truncate in variants:
         wrapper, plain = kernels[name][:2]
@@ -2772,6 +2802,36 @@ def main() -> int:
     # float32 bytes of one volume's own fields: a sphere (x, r), a box (lo,
     # up), a ray (p, d); the packed records pad a box or a ray to 32
     field_bytes = {0: 16, 1: 24, 2: 24}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def walk_shape(diag):
+        """The work's shape from a diagnostic pass (``diag``, (K + 2, 4)):
+        the longest lane and the longest single walk or item (the longest
+        chain of dependent steps a thread ran), the steps of every lane,
+        the SMs that ran one, the walks or items, those that ran on in
+        place, and the blocks of the largest grid that ran one."""
+        k = diag.shape[0] - 2
+        tail = diag[k:].flatten().tolist()
+        return {"longest_lane_steps": int(diag[:k, 0].max()),
+                "longest_item_steps": int(diag[:k, 3].max()),
+                "sum_steps": int(diag[:k, 0].long().sum()),
+                "sms_used": sum(bin(w & 0xFFFFFFFF).count("1")
+                                for w in tail[:5]),
+                "items": tail[5], "in_place": tail[6],
+                "grid_blocks": tail[7]}
+
+    @contextlib.contextmanager
+    def unsplit(name):
+        """W1 in one stage (a thread a lane) or W2 in one round (each
+        lane's item run to its end): the kernels without their split, to
+        measure a step's latency on the longest lane."""
+        saved = owalk.SPLIT_LANES, owalk.dfs_schedule
+        owalk.SPLIT_LANES = 1
+        owalk.dfs_schedule = lambda K, levels, sl: (owalk.DFS_BUDGET, 1, K)
+        try:
+            yield
+        finally:
+            owalk.SPLIT_LANES, owalk.dfs_schedule = saved
 
     def walk_row(row, name, call, n_launches, label, plain_too=True):
         (args, kw) = call
@@ -2788,13 +2848,23 @@ def main() -> int:
         a = pack(*args, **kw)
         steps = []
         for pkw in (count_kw, kw):
-            diag = torch.zeros((a.K, 3), dtype=torch.int32, device=dev)
+            diag = torch.zeros((a.K + 2, 4), dtype=torch.int32, device=dev)
             c, out = wrapper(*args, **pkw, diag=diag)
-            steps.append(int(diag[:, 0].max()))
-        tests = diag.sum(0).tolist()
+            steps.append(walk_shape(diag))
+        fixed = ("longest_lane_steps", "sum_steps")
+        if any(steps[0][f] != steps[1][f] for f in fixed):
+            raise AssertionError(f"{row}: the passes walked the lanes "
+                                 f"differently: {steps}")
+        shape = steps[1]
+        tests = diag[:a.K].long().sum(0).tolist()
         c_ms = time_ms(lambda: wrapper(*args, **count_kw))
         k_ms = time_ms(lambda: wrapper(*args, **kw))
         d_ms = device_ms(lambda: wrapper(*args, **kw), device_kernel[name])
+        with unsplit(name):
+            u_ms = time_ms(lambda: wrapper(*args, **count_kw))
+            if not torch.equal(wrapper(*args, **count_kw)[0], c):
+                raise AssertionError(f"{row}: the unsplit pass counts "
+                                     "otherwise")
         p_ms = err = None
         if plain_too:
             torch.cuda.synchronize()
@@ -2834,14 +2904,24 @@ def main() -> int:
         ops_ms = ops_n / FP32_OPS_PER_S * 1e3
         b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
             (ops_ms, "operations")
+        step_us = u_ms * 1e3 / max(shape["longest_lane_steps"], 1)
+        spread_ms = shape["sum_steps"] * step_us * 1e-3 / (sms * 2048)
         log(f"time: {row}, {label}: count pass {c_ms:.4f} ms, write pass "
             f"{k_ms:.4f} ms (CUDA events, median of 7; device "
             f"{fmt_ms(d_ms)}), plain write pass "
             f"{'not run' if p_ms is None else f'{p_ms:.1f} ms once'}; "
-            f"{a.K} lanes, {total} contacts, longest lane {steps[0]} / "
-            f"{steps[1]} steps (count / write: a chain of as many dependent "
-            f"record loads), {tests[1]} node and {tests[2]} leaf tests; "
-            f"launches {n_launches}, bound {b_ms:.6f} ms ({b_by}; bytes "
+            f"{a.K} lanes, {total} contacts, {tests[1]} node and {tests[2]} "
+            f"leaf tests; longest lane {shape['longest_lane_steps']} steps, "
+            f"longest item {shape['longest_item_steps']} (a chain of as "
+            f"many dependent record loads), {shape['items']} items "
+            f"({shape['in_place']} ran on in place, grids of up to "
+            f"{shape['grid_blocks']} blocks of 128 threads), "
+            f"{shape['sum_steps']} steps in all, {shape['sms_used']} of "
+            f"{sms} SMs ran one; unsplit (one thread a lane, or one round) "
+            f"the count pass takes {u_ms:.4f} ms, {step_us:.4f} us a step "
+            f"of the longest lane, at which the steps spread over every "
+            f"thread of every SM would take {spread_ms:.6f} ms; launches "
+            f"{n_launches}, bound {b_ms:.6f} ms ({b_by}; bytes "
             f"{bytes_ms:.6f}, operations {ops_ms:.6f}) [{card}]")
         if plain_too:
             rows.append({"name": row, "route": "cuda", "source": source,
@@ -2850,11 +2930,34 @@ def main() -> int:
                          "plain_ms": p_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "bound_bytes_ms": bytes_ms,
                          "bound_operations_ms": ops_ms, "library_ms": None,
-                         "count_pass_ms": c_ms,
-                         "longest_lane_steps": steps[1]})
+                         "count_pass_ms": c_ms, **shape,
+                         "unsplit_count_pass_ms": u_ms, "step_us": step_us,
+                         "spread_ms": spread_ms})
 
     for row, (call, n_launches) in walk_seen.items():
         walk_row(row, "walk_lanes", call, n_launches, "phase 14's scene")
+    # the reference library's default algorithm at the bench scene: LVT
+    # self-contact through W1 (a million lanes, one stage), phase 2's set
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with recorded_inputs(twalk) as seen:
+        t0 = time.perf_counter()
+        lvt_1m = ib.traverse(bvh, ib.LVTTraversal())
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    n_launches = launch_counts()["walk_lanes"]
+    if n_launches != 2 or not torch.equal(
+            check_contacts(lvt_1m.num_contacts, lvt_1m.cache1, 0, spheres,
+                           "LVT self at the bench scene"), keys_2p):
+        raise AssertionError("LVT self-contact at the bench scene: not "
+                             "phase 2's set, or W1 did not run its passes")
+    log(f"time: walk (W1), traverse(bvh, LVTTraversal()) at the bench "
+        f"scene ({N_BENCH} leaves): {sec:.3f} s once, "
+        f"{lvt_1m.num_contacts} contacts (phase 2's set), {n_launches} "
+        f"launches of walk_lanes [{card}]")
+    del lvt_1m
+    walk_row("walk_lanes[self, 1M]", "walk_lanes", seen["walk_lanes"],
+             n_launches, "the bench scene")
     for k, (label, (call, n_launches)) in enumerate(dfs_seen.items()):
         # the plain loop at 1M would take minutes: that scene is timed
         # without it and gives no row

@@ -1,4 +1,4 @@
-// Shared device helpers of the tile-contact kernels.
+// Shared device helpers of the tile-contact kernels and the walk kernels.
 //
 // Every float operation of a predicate is an explicitly rounded intrinsic
 // (no FMA contraction, whatever nvcc's -fmad setting): the JAX reference and
@@ -10,6 +10,7 @@
 // G entries, field-major): the a set's rows against the b set's columns.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -49,20 +50,49 @@ struct Mask<RAY_SPHERE> {
   static constexpr int FA = 6, AP = 7, FB = 4;
 };
 
+// Explicitly rounded operations of either precision: the walk kernels
+// (W1, W2) run in float or double; the tile kernels in float.
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
 // Sphere-sphere contact: dx*dx + dy*dy + dz*dz <= (ra + rb)^2, evaluated
 // left to right as in implicitbvh_tpu/ops/tile_contact.py:_band_mask.
-__device__ __forceinline__ bool sphere_hit(const float* a, const float* b) {
-  const float dx = __fsub_rn(a[0], b[0]);
-  const float dy = __fsub_rn(a[1], b[1]);
-  const float dz = __fsub_rn(a[2], b[2]);
-  const float rr = __fadd_rn(a[3], b[3]);
-  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                             __fmul_rn(dz, dz));
-  return d2 <= __fmul_rn(rr, rr);
+template <typename T>
+__device__ __forceinline__ bool sphere_hit(const T* a, const T* b) {
+  const T dx = sub_rn(a[0], b[0]);
+  const T dy = sub_rn(a[1], b[1]);
+  const T dz = sub_rn(a[2], b[2]);
+  const T rr = add_rn(a[3], b[3]);
+  const T d2 =
+      add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
+  return d2 <= mul_rn(rr, rr);
 }
 
 // Box-box overlap; a and b hold (lo0, lo1, lo2, up0, up1, up2).
-__device__ __forceinline__ bool box_hit(const float* a, const float* b) {
+template <typename T>
+__device__ __forceinline__ bool box_hit(const T* a, const T* b) {
   return (a[3] >= b[0]) & (a[0] <= b[3]) & (a[4] >= b[1]) & (a[1] <= b[4]) &
          (a[5] >= b[2]) & (a[2] <= b[5]);
 }
@@ -71,46 +101,47 @@ __device__ __forceinline__ bool box_hit(const float* a, const float* b) {
 // a NaN in either operand returns y.  fminf/fmaxf drop a NaN operand
 // instead, which changes the answer for a ray lying in a face plane with a
 // zero direction component (0 * inf), so they must not be used here.
-__device__ __forceinline__ float min2(float x, float y) {
+template <typename T>
+__device__ __forceinline__ T min2(T x, T y) {
   return (x < y) ? x : y;
 }
-__device__ __forceinline__ float max2(float x, float y) {
+template <typename T>
+__device__ __forceinline__ T max2(T x, T y) {
   return (x > y) ? x : y;
 }
 
 // Forward ray against box, slab test (_band_mask, ray_box): a holds
 // (p0, p1, p2, 1/d0, 1/d1, 1/d2), b holds (lo0, lo1, lo2, up0, up1, up2).
-__device__ __forceinline__ bool ray_box_hit(const float* a, const float* b) {
-  float tmin = 0.f, tmax = 0.f;
+template <typename T>
+__device__ __forceinline__ bool ray_box_hit(const T* a, const T* b) {
+  T tmin = 0, tmax = 0;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float t1 = __fmul_rn(__fsub_rn(b[k], a[k]), a[3 + k]);
-    const float t2 = __fmul_rn(__fsub_rn(b[3 + k], a[k]), a[3 + k]);
-    const float lo = min2(t1, t2);
-    const float hi = max2(t1, t2);
+    const T t1 = mul_rn(sub_rn(b[k], a[k]), a[3 + k]);
+    const T t2 = mul_rn(sub_rn(b[3 + k], a[k]), a[3 + k]);
+    const T lo = min2(t1, t2);
+    const T hi = max2(t1, t2);
     tmin = (k == 0) ? lo : max2(tmin, lo);
     tmax = (k == 0) ? hi : min2(tmax, hi);
   }
-  return (tmin <= tmax) & (tmax >= 0.f);
+  return (tmin <= tmax) & (tmax >= T(0));
 }
 
 // Forward ray against sphere, discriminant test (_band_mask, ray_sphere):
 // a holds (p0, p1, p2, d0, d1, d2, qa = d.d), b holds (x0, x1, x2, r).
-__device__ __forceinline__ bool ray_sphere_hit(const float* a,
-                                               const float* b) {
-  const float po0 = __fsub_rn(a[0], b[0]);
-  const float po1 = __fsub_rn(a[1], b[1]);
-  const float po2 = __fsub_rn(a[2], b[2]);
-  const float qb = __fmul_rn(
-      2.0f, __fadd_rn(__fadd_rn(__fmul_rn(po0, a[3]), __fmul_rn(po1, a[4])),
-                      __fmul_rn(po2, a[5])));
-  const float qc = __fsub_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(po0, po0), __fmul_rn(po1, po1)),
-                __fmul_rn(po2, po2)),
-      __fmul_rn(b[3], b[3]));
-  const float disc = __fsub_rn(__fmul_rn(qb, qb),
-                               __fmul_rn(__fmul_rn(4.0f, a[6]), qc));
-  return (disc >= 0.f) & ((qb <= 0.f) | (qc <= 0.f));
+template <typename T>
+__device__ __forceinline__ bool ray_sphere_hit(const T* a, const T* b) {
+  const T po0 = sub_rn(a[0], b[0]);
+  const T po1 = sub_rn(a[1], b[1]);
+  const T po2 = sub_rn(a[2], b[2]);
+  const T qb = mul_rn(
+      T(2), add_rn(add_rn(mul_rn(po0, a[3]), mul_rn(po1, a[4])),
+                   mul_rn(po2, a[5])));
+  const T qc = sub_rn(
+      add_rn(add_rn(mul_rn(po0, po0), mul_rn(po1, po1)), mul_rn(po2, po2)),
+      mul_rn(b[3], b[3]));
+  const T disc = sub_rn(mul_rn(qb, qb), mul_rn(mul_rn(T(4), a[6]), qc));
+  return (disc >= T(0)) & ((qb <= T(0)) | (qc <= T(0)));
 }
 
 // One prepared a-row against one b-leaf, both in registers.
@@ -409,49 +440,59 @@ inline int persistent_blocks(Kern kern, int threads, size_t shmem,
 
 // ---------------------------------------------------------------------------
 // Volume records of the walk kernels (W1 walk.cu, W2 dfs.cu), one row per
-// volume as ops/walk.py packs them: a sphere (x0, x1, x2, r) is one float4,
-// a box (lo0, lo1, lo2, up0 | up1, up2, 0, 0) two.  Into v[4] or v[6].
-template <int KIND>
-__device__ __forceinline__ void load_volume(const float4* __restrict__ recs,
-                                            long long i, float* v) {
-  if constexpr (KIND == SPHERE) {
-    const float4 a = __ldg(recs + i);
+// volume as ops/walk.py packs them, in float or double: a sphere (x0, x1,
+// x2, r) is 4 values, a box (lo0, lo1, lo2, up0, up1, up2, 0, 0) 8, read
+// 16 bytes a load.  Into v[4] or v[6].
+template <int KIND, typename T>
+__device__ __forceinline__ void load_volume(const T* __restrict__ recs,
+                                            long long i, T* v) {
+  constexpr int N = KIND == SPHERE ? 4 : 6;
+  if constexpr (sizeof(T) == 4) {
+    const float4* r = reinterpret_cast<const float4*>(recs) +
+                      (KIND == SPHERE ? i : 2 * i);
+    const float4 a = __ldg(r);
     v[0] = a.x;
     v[1] = a.y;
     v[2] = a.z;
     v[3] = a.w;
+    if constexpr (N == 6) {
+      const float4 b = __ldg(r + 1);
+      v[4] = b.x;
+      v[5] = b.y;
+    }
   } else {
-    const float4 a = __ldg(recs + 2 * i);
-    const float4 b = __ldg(recs + 2 * i + 1);
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
-    v[4] = b.x;
-    v[5] = b.y;
+    const double2* r = reinterpret_cast<const double2*>(recs) +
+                       (KIND == SPHERE ? 2 * i : 4 * i);
+#pragma unroll
+    for (int h = 0; h < N / 2; ++h) {
+      const double2 a = __ldg(r + h);
+      v[2 * h] = a.x;
+      v[2 * h + 1] = a.y;
+    }
   }
 }
 
 // The box of a sphere s = (x0, x1, x2, r): c - r and c + r, each rounded
 // on its own (volumes.bbox_of_bsphere).
-__device__ __forceinline__ void box_of_sphere(const float* s, float* b) {
+template <typename T>
+__device__ __forceinline__ void box_of_sphere(const T* s, T* b) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    b[k] = __fsub_rn(s[k], s[3]);
-    b[3 + k] = __fadd_rn(s[k], s[3]);
+    b[k] = sub_rn(s[k], s[3]);
+    b[3 + k] = add_rn(s[k], s[3]);
   }
 }
 
 // volumes.iscontact of two volumes of kinds KA and KB: spheres by
 // sphere_hit, anything else by box_hit, a sphere through its box.
-template <int KA, int KB>
-__device__ __forceinline__ bool volumes_hit(const float* a, const float* b) {
+template <int KA, int KB, typename T>
+__device__ __forceinline__ bool volumes_hit(const T* a, const T* b) {
   if constexpr (KA == SPHERE && KB == SPHERE) {
     return sphere_hit(a, b);
   } else {
-    float ab[6], bb[6];
-    const float* pa = a;
-    const float* pb = b;
+    T ab[6], bb[6];
+    const T* pa = a;
+    const T* pb = b;
     if constexpr (KA == SPHERE) {
       box_of_sphere(a, ab);
       pa = ab;
@@ -462,6 +503,55 @@ __device__ __forceinline__ bool volumes_hit(const float* a, const float* b) {
     }
     return box_hit(pa, pb);
   }
+}
+
+// The next item of a work list for the calling thread, from a counter in
+// device memory zeroed by the caller: the threads of a warp that ask
+// together take consecutive items with one atomic (the walk kernels' grids
+// take items this way, so that no SM idles while items remain).
+__device__ __forceinline__ int next_item(int* counter) {
+  namespace cg = cooperative_groups;
+  const cg::coalesced_group g = cg::coalesced_threads();
+  int base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(counter, (int)g.size());
+  return g.shfl(base, 0) + (int)g.thread_rank();
+}
+
+// The SM the calling thread runs on (the walk kernels' diagnostic variants
+// record which SMs took items).
+__device__ __forceinline__ unsigned sm_id() {
+  unsigned id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
+
+// Work counters of one walk or work item of the walk kernels' diagnostic
+// variants (steps, node tests, leaf tests; the other variants count
+// nothing).
+struct WalkCounts {
+  int steps = 0, node_tests = 0, leaf_tests = 0;
+};
+
+// Adds a walk or item of lane k to diag, (K + 2, 4) int32 zeroed by the
+// launcher: lane k's steps, node tests and leaf tests summed over its
+// walks, and its longest walk, in row k; then the bits of the SMs that ran
+// one (five words), the walks, those that ran on in place (W2's items
+// that found the work list full), and the largest grid (blocks) that ran
+// one.
+__device__ __forceinline__ void walk_diag(int* diag, int K, int k,
+                                          const WalkCounts& c,
+                                          bool in_place) {
+  int* row = diag + 4LL * k;
+  atomicAdd(row, c.steps);
+  atomicAdd(row + 1, c.node_tests);
+  atomicAdd(row + 2, c.leaf_tests);
+  atomicMax(row + 3, c.steps);
+  int* tail = diag + 4LL * K;
+  const unsigned sm = sm_id();
+  if (sm < 160) atomicOr((unsigned*)tail + (sm >> 5), 1u << (sm & 31));
+  atomicAdd(tail + 5, 1);
+  if (in_place) atomicAdd(tail + 6, 1);
+  atomicMax(tail + 7, (int)gridDim.x);
 }
 
 // Calls FN<KIND, k, WARP>(...) with k = per_thread_of(G) and WARP set when

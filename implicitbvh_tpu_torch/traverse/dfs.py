@@ -10,19 +10,20 @@ the LVT walk's and BFS's.
 The JAX package runs the loop on the device (``lax.while_loop``).
 :func:`dfs_single_fixed` is the pass's one router.  On the card with no
 ``narrow`` it runs kernel W2 (``ops.dfs_lanes``, ``csrc/dfs.cu``; float32
-volumes only): one thread per lane, each with its stack in local memory,
-looping until its stack is empty; no host sync, and a CUDA graph captures
-the count, the scan and the write.  For CPU tensors, and with a ``narrow``
-callback (Python, which no kernel can call) on every device, the pass is
-W2's plain version :func:`dfs_lanes_plain`, the torch-op loop: all lanes
-in lockstep with their stacks in one (lanes, DEPTH, 2) tensor, a masked
-4-way push (the four children in one scatter, each at the stack pointer
-plus the number of children pushed before it).  Torch has no device-side
-loop, so its end test ``any(sp > 0)`` is a host sync.  A step leaves a
-lane whose stack is empty alone (``active`` gates every push, count and
-write), so the body runs in blocks of ``BLOCK_STEPS`` steps with one test
-per block, as ``walk.py`` does; ``dfs_single_fixed.steps`` and
-``dfs_single_fixed.syncs`` count the steps run and the tests made.
+or float64 volumes): each lane's stack runs as work items in rounds of a
+few steps, its rows placed in the lane's order; no host sync, and a CUDA
+graph captures the count, the scan and the write.  For CPU tensors, and
+with a ``narrow`` callback (Python, which no kernel can call) on every
+device, the pass is W2's plain version :func:`dfs_lanes_plain`, the
+torch-op loop: all lanes in lockstep with their stacks in one (lanes,
+DEPTH, 2) tensor, a masked 4-way push (the four children in one scatter,
+each at the stack pointer plus the number of children pushed before it).
+Torch has no device-side loop, so its end test ``any(sp > 0)`` is a host
+sync.  A step leaves a lane whose stack is empty alone (``active`` gates
+every push, count and write), so the body runs in blocks of
+``BLOCK_STEPS`` steps with one test per block, as ``walk.py`` does;
+``dfs_single_fixed.steps`` and ``dfs_single_fixed.syncs`` count the steps
+run and the tests made.
 
 The sprouting rules are single-tree BFS's: i1 < i2 for pair checks, so
 only i2's right child can be virtual; a self pair (i, i) sprouts (ll, lr,

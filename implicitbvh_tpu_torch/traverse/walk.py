@@ -16,14 +16,14 @@ lane's contacts at ``offsets[lane] + running count``.
 :func:`route_walk`, the walk's one router, takes a declarative lane spec
 (leaf lanes or rays, the dedup prune of self-contact, ``flip``, the ray
 offset).  On the card with no ``narrow`` it launches kernel W1
-(``ops.walk_lanes``, ``csrc/walk.cu``): one thread per lane looping until
-the lane is done, with no host sync, as the JAX package's
-``lax.while_loop`` runs on the device.  For CPU tensors it runs W1's plain
-version :func:`walk_lanes_plain`, the torch-op loop :func:`stackless_walk`.
-A ``narrow`` callback is Python, which no kernel can call, so with one the
-walk runs :func:`walk_lanes_plain` on every device: an explicit route
-chosen by the argument, not a fallback.  W1 reads float32 records: a
-float64 BVH on the card raises, as the tile engine does.
+(``ops.walk_lanes``, ``csrc/walk.cu``): the lanes run on the device until
+each is done, few lanes split by subtree without changing their rows, with
+no host sync, as the JAX package's ``lax.while_loop`` runs on the device;
+float32 and float64 volumes, promoted as torch promotes.  For CPU tensors
+it runs W1's plain version :func:`walk_lanes_plain`, the torch-op loop
+:func:`stackless_walk`.  A ``narrow`` callback is Python, which no kernel
+can call, so with one the walk runs :func:`walk_lanes_plain` on every
+device: an explicit route chosen by the argument, not a fallback.
 
 :func:`stackless_walk` runs all lanes in lockstep in torch ops.  Torch has
 no device-side loop, so the test ``any(inode > 0)`` that ends it is a host
@@ -224,10 +224,10 @@ def route_walk(target, start_level: int, lanes, *, flip: bool = False,
     ``narrow(leaf, points, directions)``.
 
     On the card with no ``narrow``: kernel W1 (``ops.walk_lanes``, no host
-    sync; float32 volumes only).  For CPU tensors, and with ``narrow`` on
-    every device: :func:`walk_lanes_plain`, the torch-op loop, which syncs
-    with the host once every ``BLOCK_STEPS`` steps (no kernel can call a
-    Python callback).
+    sync; float32 or float64 volumes).  For CPU tensors, and with
+    ``narrow`` on every device: :func:`walk_lanes_plain`, the torch-op
+    loop, which syncs with the host once every ``BLOCK_STEPS`` steps (no
+    kernel can call a Python callback).
     """
     if narrow is None and cuda_device(target.skips):
         return walk_lanes(target, start_level, lanes, flip=flip,
