@@ -208,6 +208,24 @@ held against their plain versions at the path's inputs only.
     the steps of all lanes, the SMs that ran one, the items), beside the
     plain loop's write pass once (not for DFS at 1M, where it would take
     minutes).
+24. the tile engine in float64 (the kernels' ``<double>`` instantiation):
+    each kernel (B1, B2 with its ray masks, moments and two field sets,
+    B3, B4, B6) against its plain version on float64 inputs: the small
+    scenes of phases 1, 6 and 11 and the bench, full-width ray and pair
+    scenes' inputs; the bench scene built from its triangles in float64
+    on both routes (its set the float64 W1 walk's), the 249,882-triangle
+    reference scene against a float64 brute force over all sphere pairs,
+    the full-width ray scene against ``brute_force_keys`` in float64,
+    config 4's pair scene against ``brute_force_pair_keys`` and the
+    full-width pair scene and a mixed pair (the float32 bench BVH against
+    the float64 second body) against the float64 W1 walk, each on both
+    routes with overflow 0, no duplicates and no host sync; a
+    near-touching scene (500 pairs of spheres 2r(1 + 1e-10) apart: no
+    contact in float64, the float32 brute force's contacts once rounded
+    to float32) with B1-B4 launched; the float64 bench step and pair query
+    captured as phase 22's cells and replayed on new inputs; and B1-B4 and
+    B6 timed in float64 beside their float32 rows in turns, each with its
+    bound (float64 operations over the H100's 34 TFLOP/s).
 
 Each phase group prints its seconds and the script's total so far.
 W1's and W2's rows (``walk_lanes[...]``, ``dfs_lanes[self]``) are their
@@ -219,6 +237,8 @@ kernels' diagnostic variant) stands beside them, with the count pass
 unsplit (W1 in one stage, W2 in one round) and the steps of all lanes
 spread over every thread of every SM at its time per step of the longest
 lane.
+The float64 rows (``<name>[f64]``) count their fields' 8-byte values and
+their operations over the float64 rate.
 Each row's bound is printed with both of its terms (bytes and operations)
 and with the instruction floor of its operations (twice the operations
 term: the predicates are explicitly rounded, so no operation fuses into an
@@ -249,6 +269,7 @@ FALLBACK = dict(row_cap=32, pair_cap=512)   # pair_cap > 128: the fallback
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+FP64_OPS_PER_S = 34e12      # H100 SXM, float64 outside the tensor cores
 # sub/mul/add/compare per test (selects and the per-ray reciprocals and d.d
 # not counted): ray_box 6 sub + 6 mul + 12 compares; ray_sphere 3 sub +
 # 6 (qb) + 7 (qc) + 4 (disc) + 3 compares
@@ -521,20 +542,25 @@ def main() -> int:
 
     errs = {}      # row of the kernels line -> max abs difference seen
 
-    def row_of(name, kw, pair=False):
+    def is_f64(args):
+        return any(torch.is_tensor(a) and a.dtype == torch.float64
+                   for a in args)
+
+    def row_of(name, kw, pair=False, f64=False):
         """The row of the kernels line a call belongs to: the kernel's name,
         with its variant where it is not the self-contact one (``pair``:
-        the two-tree callers; ``cross`` for the kernels without a mask)."""
+        the two-tree callers; ``cross`` for the kernels without a mask;
+        ``f64``: the float64 instantiation)."""
         kind, moments = kw.get("mask_kind", ""), kw.get("moments", False)
         tags = [kind] * (kind.startswith("ray") or moments
                          or (pair and bool(kind))) + \
             ["moments"] * moments + \
-            [("pair" if kind else "cross")] * pair
+            [("pair" if kind else "cross")] * pair + ["f64"] * f64
         return f"{name}[{','.join(tags)}]" if tags else name
 
     def check_kernel(name, args, kw, label, pair=False):
         wrapper, plain = kernels[name][:2]
-        row = row_of(name, kw, pair)
+        row = row_of(name, kw, pair, is_f64(args))
         errs.setdefault(row, 0)
         got, want = outputs_of(name, wrapper(*args, **kw),
                                plain(*args, **kw), args, kw)
@@ -1372,8 +1398,10 @@ def main() -> int:
     def bound(name, args, kw):
         """(bytes_ms, operations_ms): the bytes over the memory rate (inputs
         read once, outputs written once) and the float operations this
-        run's data needs over the fp32 rate; the bound is the larger."""
+        run's data needs over the rate of their type (fp32 or fp64); the
+        bound is the larger."""
         ops_n = 0
+        rate = FP64_OPS_PER_S if is_f64(args) else FP32_OPS_PER_S
         if name == "subtile_band_bits":
             sub, tl, si, sj, nsp = args
             out_b = si.shape[0] * 32 * 32 * 4
@@ -1467,18 +1495,22 @@ def main() -> int:
             counts = kernels[name][0](*args, **kw)[2]
             lanes = int(counts.clamp(max=kw["CAP_PAIR"]).sum())
             b = nbytes(*ins) + 4 * counts.numel() + 4 + 2 * 4 * lanes
-        return b / HBM_BYTES_PER_S * 1e3, ops_n / FP32_OPS_PER_S * 1e3
+        return b / HBM_BYTES_PER_S * 1e3, ops_n / rate * 1e3
 
-    def device_ms(fn, names, reps=7, tries=3):
+    def device_ms(fn, names, reps=7, tries=3, per_record=False):
         """The device time per call of ``fn`` of the CUDA kernels whose
         names hold one of ``names``, from the profiler's
         ``key_averages()``: the kernels' own time, without the wrapper's
         other work.  The profiler now and then loses a kernel's records: a
         profile that did not record each of ``names`` at least once per
         call is taken again, up to ``tries`` times; after that the time is
-        None (not measured)."""
+        None (not measured), or with ``per_record`` (a wrapper that
+        launches each of ``names`` once a call), where the last profile
+        kept records of each, the sum over ``names`` of their mean per
+        record."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+        seen, kept = {}, {}
         for _ in range(tries):
             fn()
             torch.cuda.synchronize()
@@ -1490,11 +1522,20 @@ def main() -> int:
             ev = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and any(n in e.key for n in names)]
+            seen = {e.key: e.count for e in ev}
             if all(sum(e.count for e in ev if n in e.key) >= reps
                    for n in names):
                 return sum(e.self_device_time_total for e in ev) / reps / 1e3
-        log(f"the profiler lost records of {names} in {tries} profiles: "
-            "their device time is not measured")
+            kept = {n: [e for e in ev if n in e.key] for n in names}
+        if per_record and all(kept.values()):
+            log(f"the profiler kept {seen} records of {reps} calls in the "
+                f"last of {tries} profiles: the device time is the sum of "
+                "each kernel's mean per record")
+            return sum(sum(e.self_device_time_total for e in k) /
+                       sum(e.count for e in k) for k in kept.values()) / 1e3
+        log(f"the profiler lost records of {names} in {tries} profiles "
+            f"(the last one's records of {reps} calls: {seen}): their "
+            "device time is not measured")
         return None
 
     def fmt_ms(ms):
@@ -2833,7 +2874,8 @@ def main() -> int:
         finally:
             owalk.SPLIT_LANES, owalk.dfs_schedule = saved
 
-    def walk_row(row, name, call, n_launches, label, plain_too=True):
+    def walk_row(row, name, call, n_launches, label, plain_too=True,
+                 per_record=False):
         (args, kw) = call
         wrapper, plain, source, replaces = kernels[name]
         # the router passes the lanes positionally and the write pass's
@@ -2859,7 +2901,8 @@ def main() -> int:
         tests = diag[:a.K].long().sum(0).tolist()
         c_ms = time_ms(lambda: wrapper(*args, **count_kw))
         k_ms = time_ms(lambda: wrapper(*args, **kw))
-        d_ms = device_ms(lambda: wrapper(*args, **kw), device_kernel[name])
+        d_ms = device_ms(lambda: wrapper(*args, **kw), device_kernel[name],
+                         per_record=per_record)
         with unsplit(name):
             u_ms = time_ms(lambda: wrapper(*args, **count_kw))
             if not torch.equal(wrapper(*args, **count_kw)[0], c):
@@ -2956,8 +2999,10 @@ def main() -> int:
         f"{lvt_1m.num_contacts} contacts (phase 2's set), {n_launches} "
         f"launches of walk_lanes [{card}]")
     del lvt_1m
+    # the profiler kept 6 of the 7 write passes' records of this row in
+    # every try (one kernel a call, one stage): the mean per kept record
     walk_row("walk_lanes[self, 1M]", "walk_lanes", seen["walk_lanes"],
-             n_launches, "the bench scene")
+             n_launches, "the bench scene", per_record=True)
     for k, (label, (call, n_launches)) in enumerate(dfs_seen.items()):
         # the plain loop at 1M would take minutes: that scene is timed
         # without it and gives no row
@@ -2965,6 +3010,349 @@ def main() -> int:
                  plain_too=k == 0)
     log(f"time: phase 23 (the walks on the device) "
         f"{time.perf_counter() - t23:.1f} s; the script "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # 24. the tile engine in float64 (the kernels' <double> instantiation):
+    # each kernel against its plain version on float64 inputs, the
+    # full-width float64 scenes on both routes against independent float64
+    # answers, the near-touching scene, the float64 step and pair query
+    # captured, and B1-B4 and B6 timed in float64 beside their float32 rows
+    t24 = time.perf_counter()
+
+    def wide(tris_dev):
+        """Triangles (as ``to_dev`` gives them) in float64."""
+        return tuple(tuple(c.double() for c in tri) for tri in tris_dev)
+
+    def f64_path(run, route, label):
+        """A float64 ``*_fixed`` call under the sync check with its launch
+        counts, which must be its route's."""
+        out, launches = counted(run)
+        check_pair_launches(launches, route, label)
+        return out, launches
+
+    # a. the small scenes of phases 1, 6 and 11 in float64
+    small64 = wide(small)
+    tile32_2p = ib.TileTraversal(tile=32, **TWO_PHASE)
+    with recorded_inputs() as seen:
+        _, small64_bvh, _ = step(*small64, 4096, tile32_2p)
+    label = f"small scene in float64 ({N_SMALL} triangles, tile 32"
+    check_kernels(seen, label + ", two-phase)", two_phase_kernels)
+    with recorded_inputs() as seen:
+        ib.traverse_tiles_fixed(small64_bvh, 4096, alg=ib.TileTraversal(
+            tile=32, decode_k=8, **TWO_PHASE))
+    check_kernels(seen, label + ", two-phase with decode_k=8)",
+                  ("tile_run_counts",))
+    with recorded_inputs() as seen:
+        step(*small64, 4096, small_fb)
+    check_kernels(seen, label + ", fallback)", fallback_kernels)
+    check_kernel("tile_pair_contacts", *pair_list(small64_bvh, small_fb),
+                 label + ", fallback)")
+    sph64 = ib.bsphere_from_triangles(*small64)
+    box64 = ib.BBox(tuple(torch.round(x - sph64.r) for x in sph64.xs),
+                    tuple(torch.round(x + sph64.r) + 0.5 for x in sph64.xs))
+    for kind, vol in (("sphere", sph64), ("box", box64)):
+        seen = record_ray_inputs(
+            ib.build(vol), sp.double(), sd.double(), 1 << 15,
+            ib.TileTraversal(decode_k=8, **ray_small),
+            ib.TileTraversal(tile=32, row_cap=16, pair_cap=256),
+            emit_alg=ib.TileTraversal(**ray_small))
+        check_ray_kernels(seen, f"small ray scene in float64 ({N_SMALL} "
+                          f"{kind} leaves, 1024 rays, tile 32)")
+    sph64_2 = ib.bsphere_from_triangles(
+        *wide(to_dev(synth_triangles(N_SMALL // 2, seed=2), dev)))
+    for kind, v1, v2 in (("sphere", sph64, sph64_2),
+                         ("box", boxes_of(sph64), boxes_of(sph64_2))):
+        b1, b2 = ib.build(v1), ib.build(v2)
+        label = (f"small pair scene in float64 ({N_SMALL} x {N_SMALL // 2} "
+                 f"{kind} leaves, tile 32")
+        bf = brute_force_pair_keys(v1, v2)
+        for route, alg, names in (("two-phase", tile32_2p, two_phase_kernels),
+                                  ("fallback", small_fb, fallback_kernels)):
+            with recorded_inputs() as seen:
+                out = ib.traverse_tiles_pair_fixed(b1, b2, 8192, alg=alg)
+            check_kernels(seen, f"{label}, {route})", names, pair=True)
+            if not torch.equal(pair_keys(*out[:3], N_SMALL, N_SMALL // 2,
+                                         f"{label}, {route})"), bf):
+                raise AssertionError(f"{label}, {route}): the pair set "
+                                     "differs from the brute force's")
+    del small64_bvh, sph64, box64, sph64_2, b1, b2
+
+    # b. the bench scene from its triangles in float64, both routes: its
+    # set is the float64 W1 walk's, and the kernels equal their plain
+    # versions at its inputs
+    tris64 = wide(tris)
+    spheres64 = ib.bsphere_from_triangles(*tris64)
+    bvh64f = ib.build(spheres64)
+    keys_of = {}
+    launches_f64 = {}
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        label = f"bench scene in float64, {route}"
+        (t, c, o, nc), launches_f64[route] = f64_path(
+            lambda: ib.traverse_tiles_fixed(bvh64f, capacity, alg=alg),
+            route, label)
+        keys_of[route] = check_contacts(int(t), c, int(o), spheres64, label)
+        log(f"{label}: {N_BENCH} triangles, {int(t)} contacts (float32: "
+            f"{TPU_BENCH_CONTACTS}), overflow 0, no duplicates, no host "
+            f"sync, num_checks {float(nc):.0f}, launches "
+            f"{launches_f64[route]}")
+    keys_f64 = keys_of["two-phase"]
+    lvt64 = ib.traverse(bvh64f, ib.LVTTraversal())
+    if not torch.equal(keys_of["fallback"], keys_f64) or not torch.equal(
+            check_contacts(lvt64.num_contacts, lvt64.cache1, 0, spheres64,
+                           "float64 W1 walk at the bench scene"), keys_f64):
+        raise AssertionError("bench scene in float64: the routes' sets and "
+                             "the float64 W1 walk's differ")
+    n32_only = int((~torch.isin(keys_2p, keys_f64)).sum())
+    n64_only = int((~torch.isin(keys_f64, keys_2p)).sum())
+    log(f"bench scene in float64: both routes give the float64 W1 walk's "
+        f"{keys_f64.numel()} contacts; {n64_only} of them are not in the "
+        f"float32 set, {n32_only} float32 contacts are not in it")
+    del lvt64, c
+    with recorded_inputs() as seen_f64:
+        ib.traverse_tiles_fixed(bvh64f, capacity, alg=two_phase)
+    check_kernels(seen_f64, f"bench scene in float64 ({N_BENCH} triangles, "
+                  "two-phase)", two_phase_kernels)
+    with recorded_inputs() as seen_f64_fb:
+        ib.traverse_tiles_fixed(bvh64f, capacity, alg=fallback)
+    label = f"bench scene in float64 ({N_BENCH} triangles, fallback)"
+    check_kernels(seen_f64_fb, label, fallback_kernels)
+    b6_in64 = pair_list(bvh64f, fallback)
+    check_kernel("tile_pair_contacts", *b6_in64, label)
+
+    # c. the 249,882-triangle reference scene in float64 against the brute
+    # force over all sphere pairs
+    d_sph64 = ib.bsphere_from_triangles(
+        *wide(to_dev(synth_triangles(N_DRAGON, seed=0), dev)))
+    d_bvh64 = ib.build(d_sph64)
+    t0 = time.perf_counter()
+    keys_d64 = brute_force_self_keys(d_sph64)
+    log(f"reference scene in float64: brute force of "
+        f"{N_DRAGON * (N_DRAGON - 1) // 2} sphere pairs on the card, "
+        f"{keys_d64.numel()} contacts (float32: {TPU_DRAGON_CONTACTS}), "
+        f"{time.perf_counter() - t0:.3f} s")
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        label = f"reference scene in float64, {route}"
+        (t, c, o, _), launches = f64_path(
+            lambda: ib.traverse_tiles_fixed(d_bvh64, DRAGON_CAPACITY,
+                                            alg=alg), route, label)
+        if not torch.equal(check_contacts(int(t), c, int(o), d_sph64, label),
+                           keys_d64):
+            raise AssertionError(f"{label}: not the brute force's set")
+        log(f"{label}: {int(t)} contacts, the brute force's set, overflow "
+            f"0, no duplicates, no host sync, launches {launches}")
+    del d_sph64, d_bvh64, c
+
+    # d. the full-width ray scene in float64 against brute_force_keys
+    ray_sph64 = ib.bsphere_from_triangles(
+        *wide(to_dev(synth_triangles(N_RAY_TRIS), dev)))
+    ray_bvh64f = ib.build(ray_sph64)
+    rp64, rd64 = rp.double(), rd.double()
+    t0 = time.perf_counter()
+    keys_r64 = brute_force_keys(ray_sph64, rp64, rd64)
+    log(f"ray scene in float64: brute force of {N_RAYS} x {N_RAY_TRIS} tests "
+        f"on the card, {keys_r64.numel()} hits (float32: {TPU_RAY_HITS}), "
+        f"{time.perf_counter() - t0:.3f} s")
+    for route, alg, names, none in (
+            ("two-phase", None, ray_two_phase_kernels, ray_fallback_kernels),
+            ("fallback", ray_fallback, ray_fallback_kernels,
+             ray_two_phase_kernels)):
+        label = f"ray scene in float64, {route}"
+        (t, c, o, _), launches = ray_path(ray_bvh64f, rp64, rd64,
+                                          RAY_CAPACITY, alg)
+        if min(launches[n] for n in names) < 1 or \
+                any(launches[n] for n in none):
+            raise AssertionError(f"{label}: launches are wrong: {launches}")
+        if not torch.equal(hit_keys(t, c, o, N_RAY_TRIS, N_RAYS, label),
+                           keys_r64):
+            raise AssertionError(f"{label}: not the brute force's hits")
+        log(f"{label}: {int(t)} hits, the brute force's set, overflow 0, "
+            f"no duplicates, no host sync, launches {launches}")
+    seen = record_ray_inputs(ray_bvh64f, rp64, rd64, RAY_CAPACITY, None,
+                             ray_fallback)
+    check_ray_kernels(seen, f"ray scene in float64 ({N_RAY_TRIS} leaves, "
+                      f"{N_RAYS} rays)")
+    del ray_sph64, ray_bvh64f, c, keys_r64
+
+    # e. config 4's pair scene in float64 against brute_force_pair_keys
+    c4_64 = [ib.bsphere_from_triangles(*wide(to_dev(
+        synth_triangles(n, seed=sd_), dev)))
+        for n, sd_ in ((N_PAIR4[0], 2), (N_PAIR4[1], 3))]
+    keys_c4_64 = brute_force_pair_keys(*c4_64)
+    c4_bvh_64 = [ib.build(v) for v in c4_64]
+    for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+        label = f"config 4 scene in float64, {route}"
+        (t, c, o, _), launches = f64_path(
+            lambda: ib.traverse_tiles_pair_fixed(*c4_bvh_64, PAIR4_CAPACITY,
+                                                 alg=alg), route, label)
+        if not torch.equal(pair_keys(t, c, o, *N_PAIR4, label), keys_c4_64):
+            raise AssertionError(f"{label}: not the brute force's set")
+        log(f"{label}: {int(t)} contacts (float32: {TPU_PAIR4_CONTACTS}), "
+            f"the brute force's set, overflow 0, no duplicates, no host "
+            f"sync, launches {launches}")
+    del c4_64, c4_bvh_64, c
+
+    # f. the full-width pair scene in float64, and the mixed pair (the
+    # float32 bench BVH against the float64 second body): each route's
+    # set is the float64 W1 walk's
+    body2_64 = ib.bsphere_from_triangles(
+        *wide(to_dev(synth_triangles(N_BODY2, seed=3), dev)))
+    bvh2_64 = ib.build(body2_64)
+    keys_pair64 = None
+    for name, b1 in (("float64", bvh64f), ("mixed float32 x float64", bvh)):
+        walk = ib.traverse(b1, bvh2_64, ib.LVTTraversal())
+        want = pair_keys(walk.num_contacts, walk.cache1, 0, N_BENCH,
+                         N_BODY2, f"pair scene, {name}, W1")
+        del walk
+        seen_p = {}
+        for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
+            label = f"pair scene, {name}, {route}"
+            (t, c, o, _), launches = f64_path(
+                lambda: ib.traverse_tiles_pair_fixed(
+                    b1, bvh2_64, PAIR_CAPACITY, alg=alg,
+                    pair_capacity=PAIR_PAIR_CAPACITY), route, label)
+            if not torch.equal(pair_keys(t, c, o, N_BENCH, N_BODY2, label),
+                               want):
+                raise AssertionError(f"{label}: not the float64 W1 walk's "
+                                     "set")
+            log(f"{label}: {N_BENCH} x {N_BODY2} leaves, {int(t)} contacts "
+                f"(float32: {keys_union.numel()}), the float64 W1 walk's "
+                f"set, overflow 0, no duplicates, no host sync, launches "
+                f"{launches}")
+            with recorded_inputs() as seen_p[route]:
+                ib.traverse_tiles_pair_fixed(
+                    b1, bvh2_64, PAIR_CAPACITY, alg=alg,
+                    pair_capacity=PAIR_PAIR_CAPACITY)
+        if keys_pair64 is None:
+            keys_pair64 = want
+            check_kernels(seen_p["two-phase"], f"pair scene in float64 "
+                          "(two-phase)", two_phase_kernels, pair=True)
+            check_kernels(seen_p["fallback"], f"pair scene in float64 "
+                          "(fallback)", fallback_kernels, pair=True)
+        del seen_p, c
+
+    # g. the near-touching scene: 500 pairs of spheres of radius 0.01 whose
+    # centres lie 2r(1 + 1e-10) apart, one pair per cell of a unit lattice:
+    # apart in float64, and the float32 brute force's contacts once rounded
+    rng = np.random.default_rng(7)
+    n_near = 500
+    cell = np.stack(np.meshgrid(*[np.arange(8)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)[:n_near].astype(np.float64)
+    cen = cell + 0.25 + rng.random((n_near, 3)) * 0.5
+    u = rng.normal(size=(n_near, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    near_x = np.concatenate([cen, cen + u * (2 * 0.01 * (1 + 1e-10))])
+    near_r = np.full(2 * n_near, 0.01)
+    for dt in (np.float64, np.float32):
+        near = ib.BSphere(near_x.astype(dt), near_r.astype(dt), device=dev)
+        near_bvh = ib.build(near)
+        want = brute_force_self_keys(near)
+        # in float32 a tile pair holds more contacts than TWO_PHASE's caps
+        for route, alg in (("two-phase", ib.TileTraversal(row_cap=8,
+                                                          pair_cap=128)),
+                           ("fallback", fallback)):
+            label = f"near-touching scene in {np.dtype(dt).name}, {route}"
+            (t, c, o, _), launches = f64_path(
+                lambda: ib.traverse_tiles_fixed(near_bvh, 4096, alg=alg),
+                route, label)
+            keys = check_contacts(int(t), c, int(o), near, label)
+            if not torch.equal(keys, want) or \
+                    (dt == np.float64) != (int(t) == 0):
+                raise AssertionError(f"{label}: {int(t)} contacts, not the "
+                                     f"brute force's {want.numel()}")
+            log(f"{label}: {int(t)} contacts of {n_near} pairs 2r(1 + 1e-10) "
+                f"apart, the {np.dtype(dt).name} brute force's set, "
+                f"launches {launches}")
+    del near, near_bvh
+
+    # h. the float64 bench step and pair query captured in CUDA graphs and
+    # replayed on new inputs (phase 22's cells)
+    g_tris64 = [p.clone() for tri in tris64 for p in tri]
+    new_tris64 = [p for tri in wide(to_dev(synth_triangles(N_BENCH, seed=4),
+                                           dev)) for p in tri]
+
+    def bench64_captured(out):
+        t, c, o, _ = out
+        if not torch.equal(check_contacts(int(t), c, int(o), spheres64,
+                                          "float64 step"), keys_f64):
+            raise AssertionError("float64 bench step graph: not the "
+                                 "float64 set")
+
+    launches = graph_cell(
+        "bench step in float64, two-phase",
+        lambda: step(*[g_tris64[3 * k:3 * k + 3] for k in range(3)],
+                     capacity, two_phase)[2],
+        g_tris64, new_tris64, pair_summary, bench64_captured,
+        two_phase_kernels)
+    check_pair_launches(launches, "two-phase", "float64 bench step graph")
+    del g_tris64, new_tris64
+    g_b1, g_b2 = ib.build(spheres64), ib.build(body2_64)
+    moved2 = ib.build(ib.BSphere(torch.stack(body2_64.xs, 1) +
+                                 displaced(N_BODY2).double(), body2_64.r))
+
+    def pair64_captured(out):
+        t, c, o, _ = out
+        if not torch.equal(pair_keys(t, c, o, N_BENCH, N_BODY2,
+                                     "float64 pair graph"), keys_pair64):
+            raise AssertionError("float64 pair graph: not the float64 set")
+
+    launches = graph_cell(
+        "pair query in float64, two-phase",
+        lambda: ib.traverse_tiles_pair_fixed(
+            g_b1, g_b2, PAIR_CAPACITY, alg=two_phase,
+            pair_capacity=PAIR_PAIR_CAPACITY),
+        bvh_tensors(g_b2), bvh_tensors(moved2), pair_summary,
+        pair64_captured, two_phase_kernels)
+    check_pair_launches(launches, "two-phase", "float64 pair graph")
+    del g_b1, g_b2, moved2, body2_64, bvh2_64
+
+    # i. B1-B4 and B6 in float64 at the bench scene's inputs beside their
+    # float32 rows, in turns (float32, float64, float64, float32)
+    inputs64 = {n: seen_f64[n] for n in two_phase_kernels}
+    inputs64["tile_group_contacts"] = seen_f64_fb["tile_group_contacts"]
+    inputs64["tile_pair_contacts"] = b6_in64
+    launches64 = dict(launches_f64["fallback"])
+    launches64.update({n: launches_f64["two-phase"][n]
+                       for n in two_phase_kernels})
+    for name, (args, kw) in inputs64.items():
+        wrapper, plain, source, replaces = kernels[name]
+        args32, kw32 = inputs[name]
+        turns = {"float32": [], "float64": []}
+        for dt in ("float32", "float64", "float64", "float32"):
+            a, k = (args32, kw32) if dt == "float32" else (args, kw)
+            turns[dt].append(time_ms(lambda: wrapper(*a, **k)))
+        # each of the wrapper's kernels runs once a call; the profiler this
+        # late in the script keeps only some of their records
+        d32 = device_ms(lambda: wrapper(*args32, **kw32), device_kernel[name],
+                        per_record=True)
+        d64 = device_ms(lambda: wrapper(*args, **kw), device_kernel[name],
+                        per_record=True)
+        p_ms = time_ms(lambda: plain(*args, **kw), reps=3)
+        bytes_ms, ops_ms = bound(name, args, kw)
+        b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
+            (ops_ms, "operations")
+        row = row_of(name, kw, f64=True)
+        k_ms = statistics.median(turns["float64"])
+        ratio = (f"{d64 / d32:.2f}x" if d32 and d64 else "not measured")
+        log(f"time: {row} kernel {turns['float64'][0]:.4f} / "
+            f"{turns['float64'][1]:.4f} ms beside {row_of(name, kw32)} "
+            f"{turns['float32'][0]:.4f} / {turns['float32'][1]:.4f} ms (in "
+            f"turns, CUDA events, median of 7 each); device {fmt_ms(d64)} "
+            f"against {fmt_ms(d32)} ({ratio}); plain {p_ms:.4f} ms, "
+            f"launches {launches64.get(name, 0)}, bound {b_ms:.6f} ms "
+            f"({b_by}; bytes {bytes_ms:.6f}, operations {ops_ms:.6f} at "
+            f"{FP64_OPS_PER_S / 1e12:.0f} TFLOP/s) [{card}]")
+        rows.append({"name": row, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": launches64.get(name, 0),
+                     "max_abs_err": errs[row], "ms": k_ms, "device_ms": d64,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_bytes_ms": bytes_ms,
+                     "bound_operations_ms": ops_ms, "library_ms": None,
+                     "float32_ms": statistics.median(turns["float32"]),
+                     "float32_device_ms": d32})
+    del spheres64, bvh64f, tris64, seen_f64, seen_f64_fb, b6_in64, inputs64
+    log(f"time: phase 24 (the tile engine in float64) "
+        f"{time.perf_counter() - t24:.1f} s; the script "
         f"{time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

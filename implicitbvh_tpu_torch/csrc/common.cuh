@@ -50,8 +50,8 @@ struct Mask<RAY_SPHERE> {
   static constexpr int FA = 6, AP = 7, FB = 4;
 };
 
-// Explicitly rounded operations of either precision: the walk kernels
-// (W1, W2) run in float or double; the tile kernels in float.
+// Explicitly rounded operations of either precision: every kernel but the
+// compaction runs in float or double.
 __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
 }
@@ -145,8 +145,8 @@ __device__ __forceinline__ bool ray_sphere_hit(const T* a, const T* b) {
 }
 
 // One prepared a-row against one b-leaf, both in registers.
-template <int KIND>
-__device__ __forceinline__ bool pair_hit(const float* a, const float* b) {
+template <int KIND, typename T>
+__device__ __forceinline__ bool pair_hit(const T* a, const T* b) {
   if constexpr (KIND == SPHERE) return sphere_hit(a, b);
   if constexpr (KIND == BOX) return box_hit(a, b);
   if constexpr (KIND == RAY_BOX) return ray_box_hit(a, b);
@@ -156,28 +156,28 @@ __device__ __forceinline__ bool pair_hit(const float* a, const float* b) {
 
 // Row i of a-tile ti (fields (FA, Ta, G)) prepared into a[AP].  The ray
 // reciprocals are IEEE divisions, computed once per ray as in _acols.
-template <int KIND>
-__device__ __forceinline__ void load_a_row(const float* __restrict__ fields,
+template <int KIND, typename T>
+__device__ __forceinline__ void load_a_row(const T* __restrict__ fields,
                                            int Ta, int G, int ti, int i,
-                                           float* a) {
+                                           T* a) {
   constexpr int FA = Mask<KIND>::FA;
 #pragma unroll
   for (int f = 0; f < FA; ++f) a[f] = fields[((size_t)f * Ta + ti) * G + i];
   if constexpr (KIND == RAY_BOX) {
 #pragma unroll
-    for (int k = 3; k < 6; ++k) a[k] = __fdiv_rn(1.0f, a[k]);
+    for (int k = 3; k < 6; ++k) a[k] = div_rn(T(1), a[k]);
   }
   if constexpr (KIND == RAY_SPHERE) {
-    a[6] = __fadd_rn(__fadd_rn(__fmul_rn(a[3], a[3]), __fmul_rn(a[4], a[4])),
-                     __fmul_rn(a[5], a[5]));
+    a[6] = add_rn(add_rn(mul_rn(a[3], a[3]), mul_rn(a[4], a[4])),
+                  mul_rn(a[5], a[5]));
   }
 }
 
 // Leaf j of b-tile tj (fields (FB, Tb, G)) into b[FB].
-template <int KIND>
-__device__ __forceinline__ void load_b_leaf(const float* __restrict__ fields,
+template <int KIND, typename T>
+__device__ __forceinline__ void load_b_leaf(const T* __restrict__ fields,
                                             int Tb, int G, int tj, int j,
-                                            float* b) {
+                                            T* b) {
 #pragma unroll
   for (int f = 0; f < Mask<KIND>::FB; ++f)
     b[f] = fields[((size_t)f * Tb + tj) * G + j];
@@ -185,10 +185,10 @@ __device__ __forceinline__ void load_b_leaf(const float* __restrict__ fields,
 
 // ---------------------------------------------------------------------------
 // Records of the count, emit and slot kernels (B2 run_counts.cu, B3
-// group_emit.cu, B4 group_contacts.cu).  A prepared a-row or b-leaf is one
-// or two 16-byte records, so that one broadcast 128-bit shared load (two
-// for boxes and rays) fetches it whole; every thread of a warp reads the
-// same record.
+// group_emit.cu, B4 group_contacts.cu), in float or double.  A prepared
+// a-row or b-leaf is one or two records of four values, so that one
+// broadcast shared load per record (a float4; two double2 in double)
+// fetches it whole; every thread of a warp reads the same record.
 // Factors that depend on one side only are computed once per row or leaf
 // with the same rounded operation the predicate would apply per test:
 //   SPHERE      a, b = (x0, x1, x2, r)
@@ -196,33 +196,52 @@ __device__ __forceinline__ void load_b_leaf(const float* __restrict__ fields,
 //   RAY_BOX     a = (p0, p1, p2, 1/d0 | 1/d1, 1/d2, 0, 0); b = box
 //   RAY_SPHERE  a = (p0, p1, p2, d0 | d1, d2, 4 * (d.d), 0);
 //               b = (x0, x1, x2, r * r)
-// RA, RB: float4 records of an a-row and of a b-leaf.
+// RA, RB: records of an a-row and of a b-leaf.
 template <int KIND>
 struct Rec {
   static constexpr int RA = KIND == SPHERE ? 1 : 2;
   static constexpr int RB = (KIND == SPHERE || KIND == RAY_SPHERE) ? 1 : 2;
 };
 
-// Row i of a-tile ti into the record floats a[4 * RA].
-template <int KIND>
-__device__ __forceinline__ void load_a_rec(const float* __restrict__ fields,
+// A record of four values of T in shared memory: a float4 (16 bytes), or
+// two double2 (32 bytes; not a double4, whose alignment variants differ
+// between CUDA 12 and 13).
+struct alignas(16) Double4 {
+  double2 lo, hi;
+};
+template <typename T>
+struct RecWord;
+template <>
+struct RecWord<float> {
+  using type = float4;
+};
+template <>
+struct RecWord<double> {
+  using type = Double4;
+};
+template <typename T>
+using rec_t = typename RecWord<T>::type;
+
+// Row i of a-tile ti into the record values a[4 * RA].
+template <int KIND, typename T>
+__device__ __forceinline__ void load_a_rec(const T* __restrict__ fields,
                                            int Ta, int G, int ti, int i,
-                                           float* a) {
+                                           T* a) {
 #pragma unroll
-  for (int f = Mask<KIND>::AP; f < 4 * Rec<KIND>::RA; ++f) a[f] = 0.f;
+  for (int f = Mask<KIND>::AP; f < 4 * Rec<KIND>::RA; ++f) a[f] = T(0);
   load_a_row<KIND>(fields, Ta, G, ti, i, a);
-  if constexpr (KIND == RAY_SPHERE) a[6] = __fmul_rn(4.0f, a[6]);
+  if constexpr (KIND == RAY_SPHERE) a[6] = mul_rn(T(4), a[6]);
 }
 
-// Leaf j of b-tile tj into the record floats b[4 * RB].
-template <int KIND>
-__device__ __forceinline__ void load_b_rec(const float* __restrict__ fields,
+// Leaf j of b-tile tj into the record values b[4 * RB].
+template <int KIND, typename T>
+__device__ __forceinline__ void load_b_rec(const T* __restrict__ fields,
                                            int Tb, int G, int tj, int j,
-                                           float* b) {
+                                           T* b) {
 #pragma unroll
-  for (int f = Mask<KIND>::FB; f < 4 * Rec<KIND>::RB; ++f) b[f] = 0.f;
+  for (int f = Mask<KIND>::FB; f < 4 * Rec<KIND>::RB; ++f) b[f] = T(0);
   load_b_leaf<KIND>(fields, Tb, G, tj, j, b);
-  if constexpr (KIND == RAY_SPHERE) b[3] = __fmul_rn(b[3], b[3]);
+  if constexpr (KIND == RAY_SPHERE) b[3] = mul_rn(b[3], b[3]);
 }
 
 template <int NR>
@@ -231,6 +250,16 @@ __device__ __forceinline__ void store_rec(float4* s, int k, const float* v) {
   for (int r = 0; r < NR; ++r)
     s[k * NR + r] = make_float4(v[4 * r], v[4 * r + 1], v[4 * r + 2],
                                 v[4 * r + 3]);
+}
+
+template <int NR>
+__device__ __forceinline__ void store_rec(Double4* s, int k,
+                                          const double* v) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    s[k * NR + r].lo = make_double2(v[4 * r], v[4 * r + 1]);
+    s[k * NR + r].hi = make_double2(v[4 * r + 2], v[4 * r + 3]);
+  }
 }
 
 template <int NR>
@@ -245,27 +274,39 @@ __device__ __forceinline__ void load_rec(const float4* s, int k, float* v) {
   }
 }
 
+template <int NR>
+__device__ __forceinline__ void load_rec(const Double4* s, int k, double* v) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const double2 x = s[k * NR + r].lo;
+    const double2 y = s[k * NR + r].hi;
+    v[4 * r] = x.x;
+    v[4 * r + 1] = x.y;
+    v[4 * r + 2] = y.x;
+    v[4 * r + 3] = y.y;
+  }
+}
+
 // ray_sphere_hit on records: the same operations in the same order, with
 // 4 * (d.d) and r * r taken from the records.
-__device__ __forceinline__ bool ray_sphere_rec_hit(const float* a,
-                                                   const float* b) {
-  const float po0 = __fsub_rn(a[0], b[0]);
-  const float po1 = __fsub_rn(a[1], b[1]);
-  const float po2 = __fsub_rn(a[2], b[2]);
-  const float qb = __fmul_rn(
-      2.0f, __fadd_rn(__fadd_rn(__fmul_rn(po0, a[3]), __fmul_rn(po1, a[4])),
-                      __fmul_rn(po2, a[5])));
-  const float qc = __fsub_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(po0, po0), __fmul_rn(po1, po1)),
-                __fmul_rn(po2, po2)),
+template <typename T>
+__device__ __forceinline__ bool ray_sphere_rec_hit(const T* a, const T* b) {
+  const T po0 = sub_rn(a[0], b[0]);
+  const T po1 = sub_rn(a[1], b[1]);
+  const T po2 = sub_rn(a[2], b[2]);
+  const T qb = mul_rn(
+      T(2), add_rn(add_rn(mul_rn(po0, a[3]), mul_rn(po1, a[4])),
+                   mul_rn(po2, a[5])));
+  const T qc = sub_rn(
+      add_rn(add_rn(mul_rn(po0, po0), mul_rn(po1, po1)), mul_rn(po2, po2)),
       b[3]);
-  const float disc = __fsub_rn(__fmul_rn(qb, qb), __fmul_rn(a[6], qc));
-  return (disc >= 0.f) & ((qb <= 0.f) | (qc <= 0.f));
+  const T disc = sub_rn(mul_rn(qb, qb), mul_rn(a[6], qc));
+  return (disc >= T(0)) & ((qb <= T(0)) | (qc <= T(0)));
 }
 
 // One a-record against one b-record, both in registers.
-template <int KIND>
-__device__ __forceinline__ bool rec_hit(const float* a, const float* b) {
+template <int KIND, typename T>
+__device__ __forceinline__ bool rec_hit(const T* a, const T* b) {
   if constexpr (KIND == RAY_SPHERE) return ray_sphere_rec_hit(a, b);
   return pair_hit<KIND>(a, b);
 }
@@ -554,24 +595,38 @@ __device__ __forceinline__ void walk_diag(int* diag, int K, int k,
   atomicMax(tail + 7, (int)gridDim.x);
 }
 
-// Calls FN<KIND, k, WARP>(...) with k = per_thread_of(G) and WARP set when
-// a team of G / k threads is one warp.
+// Calls FN<T, KIND, k, WARP>(...) with k = per_thread_of(G) and WARP set
+// when a team of G / k threads is one warp.
 #define IBVH_DISPATCH_TEAM(G, FN, ...)                  \
   {                                                     \
     const int k_ = ibvh::per_thread_of(G);              \
     const bool warp_ = (G) / k_ == 32;                  \
     if (k_ == 4 && warp_)                               \
-      FN<KIND, 4, true>(__VA_ARGS__);                   \
+      FN<T, KIND, 4, true>(__VA_ARGS__);                \
     else if (k_ == 4)                                   \
-      FN<KIND, 4, false>(__VA_ARGS__);                  \
+      FN<T, KIND, 4, false>(__VA_ARGS__);               \
     else if (k_ == 2 && warp_)                          \
-      FN<KIND, 2, true>(__VA_ARGS__);                   \
+      FN<T, KIND, 2, true>(__VA_ARGS__);                \
     else if (k_ == 2)                                   \
-      FN<KIND, 2, false>(__VA_ARGS__);                  \
+      FN<T, KIND, 2, false>(__VA_ARGS__);               \
     else if (warp_)                                     \
-      FN<KIND, 1, true>(__VA_ARGS__);                   \
+      FN<T, KIND, 1, true>(__VA_ARGS__);                \
     else                                                \
-      FN<KIND, 1, false>(__VA_ARGS__);                  \
+      FN<T, KIND, 1, false>(__VA_ARGS__);               \
+  }
+
+// Runs the body with the value type T set from `value_bits` (32: float,
+// 64: double); other values return cudaErrorInvalidValue from the
+// enclosing function.
+#define IBVH_DISPATCH_VALUE(value_bits, ...)           \
+  if ((value_bits) == 32) {                            \
+    using T = float;                                   \
+    __VA_ARGS__;                                       \
+  } else if ((value_bits) == 64) {                     \
+    using T = double;                                  \
+    __VA_ARGS__;                                       \
+  } else {                                             \
+    return (int)cudaErrorInvalidValue;                 \
   }
 
 // Runs `body` with the compile-time constant KIND set from `kind`; an

@@ -3,8 +3,9 @@
 // Replaces implicitbvh_tpu/ops/tile_contact.py:tile_group_contacts
 // (_group_kernel, _pair_compact_vrows) through group_contacts_launch, and
 // tile_pair_contacts (_pair_kernel) through pair_contacts_launch, on all four
-// masks (sphere, box, ray_box, ray_sphere) with one or two field sets: ti
-// indexes the a set (Ta tiles), tj the b set (Tb tiles).  Entry e is one
+// masks (sphere, box, ray_box, ray_sphere) with one or two field sets, in
+// float or double (the fields' type; both sets of one type): ti indexes the
+// a set (Ta tiles), tj the b set (Tb tiles).  Entry e is one
 // (a-tile ti, b-tile tj) pair with a 4-bit mask of the a-tile's live
 // bands: in the grouped form ti = a_idx[e / W] and b_idx[e] packs
 // tj | band << 16 (steps past nsteps, read on the device, are dead); in the
@@ -25,7 +26,8 @@
 //   entries cost a lane, dead steps no block (the grid zeroes their counts
 //   with 16-byte stores).  Each thread owns k a-rows i = p + m*G/k (k =
 //   4, 2 or 1).  The team prepares its a-tile once (a ray's reciprocals or
-//   4 d.d) as 16-byte records in shared memory and keeps it while the
+//   4 d.d) as records of four values (16 bytes, 32 in double) in shared
+//   memory and keeps it while the
 //   entries share it, as the W entries of a step do; each entry's b-tile
 //   goes through shared memory as records too.  Per entry a thread loads
 //   only its rows of live bands into registers, so one broadcast 128-bit
@@ -38,8 +40,10 @@
 //   scene on an H100.)  At other tiles, where liveness would split a warp
 //   or a team is the block, one copy tests all k rows and counts the live.
 //   Both tiles' records take more than 48 KB of shared memory at tiles
-//   above 768 (box masks) and at 1024 (ray_sphere): persistent_blocks
-//   opts the kernel in to more.
+//   above 768 (box masks) and at 1024 (ray_sphere) in float, and in double
+//   from tile 128 (four warp teams of box records, 64 KB) up to 128 KB at
+//   tile 1024 (box): persistent_blocks opts the kernel in to more, so every
+//   tile launches in both types, double with fewer blocks an SM.
 // - Pass 1 counts each row; one team scan in row order gives the
 //   exclusive row offsets and the pair's uncapped count, written with the
 //   overflow flag (count > CAP_PAIR, or a row over ROW_CAP).  Pass 2 runs
@@ -61,10 +65,10 @@ constexpr int BANDS = 4;
 // Pass 1 over b-leaves [j0, G) of the records for the first NL of the
 // thread's rows of live bands, a[q] (rows i[q]), counting those below nl;
 // DIAG keeps j > i only.
-template <int KIND, int K, int NL, bool DIAG>
+template <typename T, int KIND, int K, int NL, bool DIAG>
 __device__ __forceinline__ void count_cols(
-    const float4* b_s, int j0, int G,
-    const float (&a)[K][4 * ibvh::Rec<KIND>::RA], const int (&i)[K], int nl,
+    const ibvh::rec_t<T>* b_s, int j0, int G,
+    const T (&a)[K][4 * ibvh::Rec<KIND>::RA], const int (&i)[K], int nl,
     int (&c)[K]) {
   constexpr int RB = ibvh::Rec<KIND>::RB;
   // unrolled twice only: at warp teams of k = 4 the K copies of this loop
@@ -72,7 +76,7 @@ __device__ __forceinline__ void count_cols(
   // instruction cache
 #pragma unroll 2
   for (int j = j0; j < G; ++j) {
-    float b[4 * RB];
+    T b[4 * RB];
     ibvh::load_rec<RB>(b_s, j, b);
 #pragma unroll
     for (int q = 0; q < NL; ++q) {
@@ -87,27 +91,27 @@ __device__ __forceinline__ void count_cols(
 // is the same for every thread of a warp (warp teams at k = 4: row m lies
 // in band m), one copy per count skips the rows of dead bands; elsewhere
 // one copy tests all K rows and counts the live ones.
-template <int KIND, int K, bool WARP, bool DIAG, int NL = 1>
+template <typename T, int KIND, int K, bool WARP, bool DIAG, int NL = 1>
 __device__ __forceinline__ void count_live(
-    int nl, const float4* b_s, int j0, int G,
-    const float (&a)[K][4 * ibvh::Rec<KIND>::RA], const int (&i)[K],
+    int nl, const ibvh::rec_t<T>* b_s, int j0, int G,
+    const T (&a)[K][4 * ibvh::Rec<KIND>::RA], const int (&i)[K],
     int (&c)[K]) {
   if constexpr (!(WARP && K == 4)) {
-    count_cols<KIND, K, K, DIAG>(b_s, j0, G, a, i, nl, c);
+    count_cols<T, KIND, K, K, DIAG>(b_s, j0, G, a, i, nl, c);
   } else if constexpr (NL <= K) {
     if (nl == NL)
-      count_cols<KIND, K, NL, DIAG>(b_s, j0, G, a, i, NL, c);
+      count_cols<T, KIND, K, NL, DIAG>(b_s, j0, G, a, i, NL, c);
     else
-      count_live<KIND, K, WARP, DIAG, NL + 1>(nl, b_s, j0, G, a, i, c);
+      count_live<T, KIND, K, WARP, DIAG, NL + 1>(nl, b_s, j0, G, a, i, c);
   }
 }
 
-template <int KIND, int K, bool PACKED, bool WARP>
+template <typename T, int KIND, int K, bool PACKED, bool WARP>
 __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
                                      const int* __restrict__ b_idx,
                                      const int* __restrict__ nlive,
-                                     const float* __restrict__ a_fields,
-                                     const float* __restrict__ b_fields,
+                                     const T* __restrict__ a_fields,
+                                     const T* __restrict__ b_fields,
                                      int* __restrict__ gi,
                                      int* __restrict__ gj,
                                      int* __restrict__ counts,
@@ -123,8 +127,9 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
   const bool writer = WARP || threadIdx.x < 32;  // writes a group's counts
   const int BH = G / BANDS;
   extern __shared__ float4 smem[];
-  float4* a_s = smem + (size_t)team.index() * G * (RA + RB);  // [G][RA]
-  float4* b_s = a_s + (size_t)G * RA;                         // [G][RB]
+  ibvh::rec_t<T>* a_s = reinterpret_cast<ibvh::rec_t<T>*>(smem) +
+                        (size_t)team.index() * G * (RA + RB);  // [G][RA]
+  ibvh::rec_t<T>* b_s = a_s + (size_t)G * RA;                  // [G][RB]
   __shared__ int scan_sh[32];  // a larger team's scan
   __shared__ int grab_sh;
   const int live_steps = min(nlive[0], n_steps);
@@ -170,7 +175,7 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
         team.sync();  // the previous entries' readers are done with a_s
 #pragma unroll
         for (int m = 0; m < K; ++m) {
-          float a[4 * RA];
+          T a[4 * RA];
           ibvh::load_a_rec<KIND>(a_fields, Ta, G, ti_q, ir[m], a);
           ibvh::store_rec<RA>(a_s, ir[m], a);
         }
@@ -179,7 +184,7 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
       team.sync();  // the previous entry's readers are done with b_s
 #pragma unroll
       for (int m = 0; m < K; ++m) {
-        float b[4 * RB];
+        T b[4 * RB];
         ibvh::load_b_rec<KIND>(b_fields, Tb, G, tj_q, ir[m], b);
         ibvh::store_rec<RB>(b_s, ir[m], b);
       }
@@ -192,7 +197,7 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
 #pragma unroll
       for (int m = 0; m < K; ++m) bits |= ((band_q >> (ir[m] / BH)) & 1) << m;
       const int nl = __popc(bits);
-      float ac[K][AR];
+      T ac[K][AR];
       int ic[K], mc[K], cq[K];
 #pragma unroll
       for (int q = 0; q < K; ++q) {
@@ -203,9 +208,10 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
         cq[q] = 0;
       }
       if (diag)
-        count_live<KIND, K, WARP, true>(nl, b_s, ic[0] + 1, G, ac, ic, cq);
+        count_live<T, KIND, K, WARP, true>(nl, b_s, ic[0] + 1, G, ac, ic,
+                                           cq);
       else
-        count_live<KIND, K, WARP, false>(nl, b_s, 0, G, ac, ic, cq);
+        count_live<T, KIND, K, WARP, false>(nl, b_s, 0, G, ac, ic, cq);
       int c[K];  // per row, in row order
 #pragma unroll
       for (int m = 0; m < K; ++m) {
@@ -236,13 +242,13 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
         if (c[m] == 0) continue;
         const int i = ir[m], off = row_off[m];
         const int lim = min(c[m], row_cap);
-        float a[4 * RA];
+        T a[4 * RA];
         ibvh::load_rec<RA>(a_s, i, a);
         int k = 0;
 #pragma unroll 1
         for (int j = diag ? i + 1 : 0; j < G && k < lim && off + k < cap_pair;
              ++j) {
-          float b[4 * RB];
+          T b[4 * RB];
           ibvh::load_rec<RB>(b_s, j, b);
           if (ibvh::rec_hit<KIND>(a, b)) {
             gi_e[off + k] = ti_q * G + i;
@@ -263,26 +269,26 @@ __global__ void slot_contacts_kernel(const int* __restrict__ a_idx,
   ibvh::grid_zero(counts, (long long)live_steps * W, (long long)n_steps * W);
 }
 
-template <int KIND, int K, bool WARP>
+template <typename T, int KIND, int K, bool WARP>
 void launch_kind(bool packed, const void* a_idx, const void* b_idx,
                  const void* nlive, const void* a_fields,
                  const void* b_fields, void* gi, void* gj, void* counts,
                  void* over, int n_steps, int W, int Ta, int Tb, int G,
                  int dedup, int row_cap, int cap_pair, cudaStream_t stream) {
-  auto kern = packed ? slot_contacts_kernel<KIND, K, true, WARP>
-                     : slot_contacts_kernel<KIND, K, false, WARP>;
+  auto kern = packed ? slot_contacts_kernel<T, KIND, K, true, WARP>
+                     : slot_contacts_kernel<T, KIND, K, false, WARP>;
   // teams of one warp go WARP_TEAMS to a block; a larger team is the block
   const int threads = WARP ? 32 * ibvh::WARP_TEAMS : G / K;
   const int teams = threads / (G / K);
   const size_t shmem = (size_t)teams * G *
                        (ibvh::Rec<KIND>::RA + ibvh::Rec<KIND>::RB) *
-                       sizeof(float4);
+                       sizeof(ibvh::rec_t<T>);
   const long long entries = (long long)n_steps * W;
   const int blocks = ibvh::persistent_blocks(kern, threads, shmem,
                                              (entries + teams - 1) / teams);
   kern<<<blocks, threads, shmem, stream>>>(
       (const int*)a_idx, (const int*)b_idx, (const int*)nlive,
-      (const float*)a_fields, (const float*)b_fields, (int*)gi, (int*)gj,
+      (const T*)a_fields, (const T*)b_fields, (int*)gi, (int*)gj,
       (int*)counts, (int*)over, n_steps, W, Ta, Tb, dedup, row_cap,
       cap_pair);
 }
@@ -291,16 +297,18 @@ int launch(bool packed, const void* a_idx, const void* b_idx,
            const void* nlive, const void* a_fields, const void* b_fields,
            void* gi, void* gj, void* counts, void* over, int n_entries,
            int W, int Ta, int Tb, int G, int kind, int dedup, int row_cap,
-           int cap_pair, void* stream) {
+           int cap_pair, int value_bits, void* stream) {
   if (G % 32 != 0 || G < 32 || G > 1024 || W < 1 || n_entries % W != 0 ||
       row_cap < 1 || cap_pair < 1 || ((size_t)counts & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const int n_steps = n_entries / W;
   if (n_steps > 0) {
-    IBVH_DISPATCH_KIND(kind, IBVH_DISPATCH_TEAM(
-        G, launch_kind, packed, a_idx, b_idx, nlive, a_fields, b_fields, gi,
-        gj, counts, over, n_steps, W, Ta, Tb, G, dedup, row_cap, cap_pair,
-        (cudaStream_t)stream))
+    IBVH_DISPATCH_VALUE(
+        value_bits,
+        IBVH_DISPATCH_KIND(kind, IBVH_DISPATCH_TEAM(
+            G, launch_kind, packed, a_idx, b_idx, nlive, a_fields, b_fields,
+            gi, gj, counts, over, n_steps, W, Ta, Tb, G, dedup, row_cap,
+            cap_pair, (cudaStream_t)stream)))
   }
   return (int)cudaGetLastError();
 }
@@ -308,7 +316,8 @@ int launch(bool packed, const void* a_idx, const void* b_idx,
 }  // namespace
 
 // a_idx: (S_cap,) i32; b_idx: (S_cap*W,) i32; nsteps: (1,) i32; a_fields:
-// (FA, Ta, G) f32; b_fields: (FB, Tb, G) f32 (may be a_fields); gi, gj:
+// (FA, Ta, G); b_fields: (FB, Tb, G) (may be a_fields); both float
+// (value_bits 32) or double (64); gi, gj:
 // (S_cap*W, cap_pair) i32; counts: (S_cap*W,) i32, 16-byte aligned; over:
 // (2,) i32, zeroed by the caller: the overflow flag, then the kernel's work
 // counter.  kind: 0 sphere, 1 box, 2 ray_box, 3
@@ -320,10 +329,10 @@ extern "C" int group_contacts_launch(const void* a_idx, const void* b_idx,
                                      void* counts, void* over, int S_cap,
                                      int W, int Ta, int Tb, int G, int kind,
                                      int dedup, int row_cap, int cap_pair,
-                                     void* stream) {
+                                     int value_bits, void* stream) {
   return launch(false, a_idx, b_idx, nsteps, a_fields, b_fields, gi, gj,
                 counts, over, S_cap * W, W, Ta, Tb, G, kind, dedup, row_cap,
-                cap_pair, stream);
+                cap_pair, value_bits, stream);
 }
 
 // packed: (P_cap,) i32 ti << 16 | tj; npairs: (1,) i32; the rest as above
@@ -334,8 +343,8 @@ extern "C" int pair_contacts_launch(const void* packed, const void* npairs,
                                     void* counts, void* over, int P_cap,
                                     int Ta, int Tb, int G, int kind,
                                     int dedup, int row_cap, int cap_pair,
-                                    void* stream) {
+                                    int value_bits, void* stream) {
   return launch(true, packed, packed, npairs, a_fields, b_fields, gi, gj,
                 counts, over, P_cap, 1, Ta, Tb, G, kind, dedup, row_cap,
-                cap_pair, stream);
+                cap_pair, value_bits, stream);
 }

@@ -2,7 +2,8 @@
 //
 // Replaces implicitbvh_tpu/ops/tile_contact.py:tile_group_emit
 // (_group_emit_kernel, _pair_compact_vrows, _stream_flush) on all four masks
-// (sphere, box, ray_box, ray_sphere), with one or two field sets.  Entry e of
+// (sphere, box, ray_box, ray_sphere), with one or two field sets, in float or
+// double (the fields' type; both sets of one type).  Entry e of
 // the emit list packs tj | band << 16 | cnt << 20 | okc << 28 and pairs
 // a-tile ti = a_idx[e / W] of the a set with b-tile tj of the b set; the
 // entries of steps at or past nsteps (read on the device) are dead.  A live
@@ -33,8 +34,8 @@
 // - group_emit_kernel runs a persistent grid over the listed entries only:
 //   teams of G/k threads (a warp at tiles 32-128, four to a block; the
 //   block above) take groups of them from the counter (Team, grab), as the
-//   count and slot kernels do.  The team keeps its a-tile as 16-byte
-//   records in shared memory until ti changes, so a step's entries load it
+//   count and slot kernels do.  The team keeps its a-tile as records of
+//   four values (16 bytes, 32 in double) in shared memory until ti changes, so a step's entries load it
 //   once; each thread holds the records of its k b-columns j = p + m*G/k
 //   in registers, so one broadcast load of an a-row feeds k tests, and
 //   (m, p) order is column order: one team scan (warp_exclusive_scan_k,
@@ -141,16 +142,16 @@ __global__ void __launch_bounds__(PLAN_THREADS)
 // the row counts: `big` is set when a row exceeds row_cap (warp teams:
 // complete from the warp's ballots; a larger team adds each warp's count
 // into rowcnt).  DIAG keeps i < j only.  The loop is uniform over the team.
-template <int KIND, int K, bool WARP, bool DIAG, bool SLOW>
+template <typename T, int KIND, int K, bool WARP, bool DIAG, bool SLOW>
 __device__ __forceinline__ void count_rows(
-    const float4* a_s, int i0, int i1,
-    const float (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
+    const ibvh::rec_t<T>* a_s, int i0, int i1,
+    const T (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
     int (&c)[K], int (&r0)[K], int (&r1)[K], int* rowcnt, int row_cap,
     bool& big) {
   constexpr int RA = ibvh::Rec<KIND>::RA;
 #pragma unroll 2
   for (int i = i0; i < i1; ++i) {
-    float a[4 * RA];
+    T a[4 * RA];
     ibvh::load_rec<RA>(a_s, i, a);
     int n = 0;
 #pragma unroll
@@ -174,10 +175,10 @@ __device__ __forceinline__ void count_rows(
   }
 }
 
-template <int KIND, int K, bool WARP, bool DIAG, bool SLOW>
+template <typename T, int KIND, int K, bool WARP, bool DIAG, bool SLOW>
 __device__ __forceinline__ void count_bands(
-    const float4* a_s, int bands, int BH, int G,
-    const float (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
+    const ibvh::rec_t<T>* a_s, int bands, int BH, int G,
+    const T (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
     int (&c)[K], int (&r0)[K], int (&r1)[K], int* rowcnt, int row_cap,
     bool& big) {
   while (bands) {  // each run of adjacent live bands as one loop
@@ -186,30 +187,30 @@ __device__ __forceinline__ void count_bands(
     bands &= ~(((1 << len) - 1) << q0);
     // under DIAG no row reaches the last column: stop at G - 1 (uniform)
     const int i1 = DIAG ? min((q0 + len) * BH, G - 1) : (q0 + len) * BH;
-    count_rows<KIND, K, WARP, DIAG, SLOW>(a_s, q0 * BH, i1, b, j, c, r0, r1,
-                                          rowcnt, row_cap, big);
+    count_rows<T, KIND, K, WARP, DIAG, SLOW>(a_s, q0 * BH, i1, b, j, c, r0,
+                                             r1, rowcnt, row_cap, big);
   }
 }
 
-template <int KIND, int K, bool WARP, bool DIAG>
+template <typename T, int KIND, int K, bool WARP, bool DIAG>
 __device__ __forceinline__ void count_entry(
-    bool slow, const float4* a_s, int bands, int BH, int G,
-    const float (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
+    bool slow, const ibvh::rec_t<T>* a_s, int bands, int BH, int G,
+    const T (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
     int (&c)[K], int (&r0)[K], int (&r1)[K], int* rowcnt, int row_cap,
     bool& big) {
   if (slow)
-    count_bands<KIND, K, WARP, DIAG, true>(a_s, bands, BH, G, b, j, c, r0,
-                                           r1, rowcnt, row_cap, big);
+    count_bands<T, KIND, K, WARP, DIAG, true>(a_s, bands, BH, G, b, j, c,
+                                              r0, r1, rowcnt, row_cap, big);
   else
-    count_bands<KIND, K, WARP, DIAG, false>(a_s, bands, BH, G, b, j, c, r0,
-                                            r1, rowcnt, row_cap, big);
+    count_bands<T, KIND, K, WARP, DIAG, false>(a_s, bands, BH, G, b, j, c,
+                                               r0, r1, rowcnt, row_cap, big);
 }
 
-template <int KIND, int K, bool WARP>
+template <typename T, int KIND, int K, bool WARP>
 __global__ void group_emit_kernel(const int* __restrict__ a_idx,
                                   const int* __restrict__ b_idx,
-                                  const float* __restrict__ a_fields,
-                                  const float* __restrict__ b_fields,
+                                  const T* __restrict__ a_fields,
+                                  const T* __restrict__ b_fields,
                                   int* __restrict__ out,
                                   int* __restrict__ plan, int W, int Ta,
                                   int Tb, int dedup, int row_cap,
@@ -220,9 +221,10 @@ __global__ void group_emit_kernel(const int* __restrict__ a_idx,
   const int lane = threadIdx.x & 31;
   const int BH = G / EMIT_BANDS;
   extern __shared__ float4 smem[];
-  float4* a_s = smem + (size_t)team.index() * G * RA;  // [G][RA] records
+  ibvh::rec_t<T>* recs = reinterpret_cast<ibvh::rec_t<T>*>(smem);
+  ibvh::rec_t<T>* a_s = recs + (size_t)team.index() * G * RA;  // [G][RA]
   // a larger team's row counts of a slow entry
-  int* rowcnt = reinterpret_cast<int*>(smem + (size_t)G * RA);
+  int* rowcnt = reinterpret_cast<int*>(recs + (size_t)G * RA);
   __shared__ int scan_sh[32];
   __shared__ int grab_sh;
   const int2* pairs = reinterpret_cast<const int2*>(plan + PLAN_HEAD);
@@ -265,7 +267,7 @@ __global__ void group_emit_kernel(const int* __restrict__ a_idx,
           team.sync();  // the previous entries' readers are done with a_s
 #pragma unroll
           for (int m = 0; m < K; ++m) {
-            float a[4 * RA];
+            T a[4 * RA];
             ibvh::load_a_rec<KIND>(a_fields, Ta, G, ta, jc[m], a);
             ibvh::store_rec<RA>(a_s, jc[m], a);
           }
@@ -276,7 +278,7 @@ __global__ void group_emit_kernel(const int* __restrict__ a_idx,
           for (int i = p; i < G; i += N) rowcnt[i] = 0;
         }
         team.sync();
-        float b[K][4 * RB];
+        T b[K][4 * RB];
 #pragma unroll
         for (int m = 0; m < K; ++m)
           ibvh::load_b_rec<KIND>(b_fields, Tb, G, tj, jc[m], b[m]);
@@ -285,11 +287,13 @@ __global__ void group_emit_kernel(const int* __restrict__ a_idx,
         for (int m = 0; m < K; ++m) c[m] = r0[m] = r1[m] = 0;
         bool big = false;
         if (dedup && tj == ti_q)
-          count_entry<KIND, K, WARP, true>(slow, a_s, bands, BH, G, b, jc, c,
-                                           r0, r1, rowcnt, row_cap, big);
+          count_entry<T, KIND, K, WARP, true>(slow, a_s, bands, BH, G, b, jc,
+                                              c, r0, r1, rowcnt, row_cap,
+                                              big);
         else
-          count_entry<KIND, K, WARP, false>(slow, a_s, bands, BH, G, b, jc,
-                                            c, r0, r1, rowcnt, row_cap, big);
+          count_entry<T, KIND, K, WARP, false>(slow, a_s, bands, BH, G, b, jc,
+                                               c, r0, r1, rowcnt, row_cap,
+                                               big);
         int coff[K];
         if constexpr (WARP) {
           tot = ibvh::warp_exclusive_scan_k<K>(c, coff);
@@ -331,7 +335,7 @@ __global__ void group_emit_kernel(const int* __restrict__ a_idx,
                                 : (q0 + len) * BH;
 #pragma unroll 1
             for (int i = q0 * BH; i < i1 && k < n; ++i) {
-              float a[4 * RA];
+              T a[4 * RA];
               ibvh::load_rec<RA>(a_s, i, a);
               if (ibvh::rec_hit<KIND>(a, b[m])) {
                 if (o + k < cap) {
@@ -359,23 +363,23 @@ __global__ void group_emit_kernel(const int* __restrict__ a_idx,
   }
 }
 
-template <int KIND, int K, bool WARP>
+template <typename T, int KIND, int K, bool WARP>
 void launch_kind(const void* a_idx, const void* b_idx, const void* a_fields,
                  const void* b_fields, void* out, void* plan, int SW, int W,
                  int Ta, int Tb, int G, int dedup, int row_cap, int cap_pair,
                  int cap, cudaStream_t stream) {
-  auto kern = group_emit_kernel<KIND, K, WARP>;
+  auto kern = group_emit_kernel<T, KIND, K, WARP>;
   // teams of one warp go WARP_TEAMS to a block; a larger team is the block
   const int threads = WARP ? 32 * ibvh::WARP_TEAMS : G / K;
   const int teams = threads / (G / K);
   const size_t shmem =
-      (size_t)teams * G * ibvh::Rec<KIND>::RA * sizeof(float4) +
+      (size_t)teams * G * ibvh::Rec<KIND>::RA * sizeof(ibvh::rec_t<T>) +
       (WARP ? 0 : (size_t)G * sizeof(int));
   const int blocks = ibvh::persistent_blocks(kern, threads, shmem,
                                              ((long long)SW + teams - 1) / teams);
   kern<<<blocks, threads, shmem, stream>>>(
-      (const int*)a_idx, (const int*)b_idx, (const float*)a_fields,
-      (const float*)b_fields, (int*)out, (int*)plan, W, Ta, Tb, dedup,
+      (const int*)a_idx, (const int*)b_idx, (const T*)a_fields,
+      (const T*)b_fields, (int*)out, (int*)plan, W, Ta, Tb, dedup,
       row_cap, cap_pair, cap);
 }
 
@@ -403,7 +407,8 @@ extern "C" int emit_plan_launch(const void* b_idx, const void* nsteps,
 }
 
 // a_idx: (S_cap,) i32; b_idx: (S_cap*W,) i32; nsteps: (1,) i32; a_fields:
-// (FA, Ta, G) f32; b_fields: (FB, Tb, G) f32 (may be a_fields); out: (2*cap
+// (FA, Ta, G); b_fields: (FB, Tb, G) (may be a_fields); both float
+// (value_bits 32) or double (64); out: (2*cap
 // + 4 + 2*S_cap*W,) i32, 16-byte aligned: gi, gj, then the plan (as
 // above; flag bit 1 set here).  Nothing needs zeroing.  kind: 0 sphere, 1
 // box, 2 ray_box, 3 ray_sphere.  G is the tile size (a multiple of 32, at
@@ -413,17 +418,21 @@ extern "C" int group_emit_launch(const void* a_idx, const void* b_idx,
                                  const void* b_fields, void* out, int S_cap,
                                  int W, int Ta, int Tb, int G, int kind,
                                  int dedup, int row_cap, int cap_pair,
-                                 int cap, void* stream) {
+                                 int cap, int value_bits, void* stream) {
   int* plan = (int*)out + 2 * (size_t)cap;
   if (G % 32 != 0 || G < 32 || G > 1024 || ((size_t)out & 15) != 0 ||
+      (value_bits != 32 && value_bits != 64) ||
       bad_plan_args(S_cap, W, cap_pair, cap, plan))
     return (int)cudaErrorInvalidValue;
   const int err = emit_plan_launch(b_idx, nsteps, plan, S_cap, W, cap_pair,
                                    cap, stream);
   if (err != 0) return err;
   const int SW = S_cap * W;
-  IBVH_DISPATCH_KIND(kind, IBVH_DISPATCH_TEAM(
-      G, launch_kind, a_idx, b_idx, a_fields, b_fields, out, plan, SW, W,
-      Ta, Tb, G, dedup, row_cap, cap_pair, cap, (cudaStream_t)stream))
+  IBVH_DISPATCH_VALUE(
+      value_bits,
+      IBVH_DISPATCH_KIND(kind, IBVH_DISPATCH_TEAM(
+          G, launch_kind, a_idx, b_idx, a_fields, b_fields, out, plan, SW,
+          W, Ta, Tb, G, dedup, row_cap, cap_pair, cap,
+          (cudaStream_t)stream)))
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 //
 // Replaces implicitbvh_tpu/ops/tile_contact.py:tile_run_counts
 // (_run_count_kernel, _acols, _band_mask) on all four masks (sphere, box,
-// ray_box, ray_sphere), with one or two field sets and with moments.
+// ray_box, ray_sphere), with one or two field sets and with moments, in
+// float or double (the fields' type; both sets of one type).
 //
 // Bound on the H100: the instruction rate.  The predicates are explicitly
 // rounded (no FMA), so every counted operation is one instruction, and the
@@ -30,8 +31,8 @@
 //   step's W*R pairs in turn.)
 // - Each of the G/k threads owns k b-columns j = p + m*G/k (k = 4, 2 or 1,
 //   the largest that keeps the team a multiple of 32) in registers, so
-//   one broadcast 128-bit load of an a-row (two for boxes and rays) feeds k
-//   tests.  The thread loops over the rows of the live bands only (band
+//   one broadcast 128-bit load of an a-row (two for boxes and rays; twice
+//   as many in double, whose records are 32 bytes) feeds k tests.  The thread loops over the rows of the live bands only (band
 //   skipping is part of the result), each run of adjacent live bands as one
 //   loop, with the j > i dedup per column on the diagonal pair when `dedup`
 //   is set (never otherwise: with two field sets ti and tj index different
@@ -60,15 +61,15 @@ constexpr int WORD_LANES = 128;
 // counts c and, with moments, the sums sw of (i << 15) + i^2 over the hit
 // rows i, which equal (sum i << 15) + sum i^2 for the at most 2 hits whose
 // word keeps them (no carry between the fields; more hits may wrap).
-template <int KIND, int K, bool MOMENTS, bool DIAG>
+template <typename T, int KIND, int K, bool MOMENTS, bool DIAG>
 __device__ __forceinline__ void count_rows(
-    const float4* a_s, int i0, int i1,
-    const float (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
+    const ibvh::rec_t<T>* a_s, int i0, int i1,
+    const T (&b)[K][4 * ibvh::Rec<KIND>::RB], const int (&j)[K],
     int (&c)[K], int (&sw)[K]) {
   constexpr int RA = ibvh::Rec<KIND>::RA;
 #pragma unroll 4
   for (int i = i0; i < i1; ++i) {
-    float a[4 * RA];
+    T a[4 * RA];
     ibvh::load_rec<RA>(a_s, i, a);
     const int wi = (i << 15) + i * i;
 #pragma unroll
@@ -83,13 +84,13 @@ __device__ __forceinline__ void count_rows(
   }
 }
 
-template <int KIND, int K, bool MOMENTS, bool WARP>
+template <typename T, int KIND, int K, bool MOMENTS, bool WARP>
 __global__ void run_counts_kernel(const int* __restrict__ a_idx,
                                   const int* __restrict__ run_idx,
                                   const int* __restrict__ bm,
                                   const int* __restrict__ nsteps,
-                                  const float* __restrict__ a_fields,
-                                  const float* __restrict__ b_fields,
+                                  const T* __restrict__ a_fields,
+                                  const T* __restrict__ b_fields,
                                   int* __restrict__ counts,
                                   int* __restrict__ colmax,
                                   int* __restrict__ words,
@@ -102,9 +103,10 @@ __global__ void run_counts_kernel(const int* __restrict__ a_idx,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, NWP = N >> 5;
   const bool writer = WARP || warp == 0;  // writes a group's counts
   extern __shared__ float4 smem[];
-  float4* a_s = smem + (size_t)team.index() * G * RA;  // [G][RA] records
+  ibvh::rec_t<T>* recs = reinterpret_cast<ibvh::rec_t<T>*>(smem);
+  ibvh::rec_t<T>* a_s = recs + (size_t)team.index() * G * RA;  // [G][RA]
   // a larger team's per-warp partial sums and maxima
-  int* part = reinterpret_cast<int*>(smem + (size_t)(blockDim.x / N) * G * RA);
+  int* part = reinterpret_cast<int*>(recs + (size_t)(blockDim.x / N) * G * RA);
   const int SW = S_cap * W, TPW = 32 / NB, BH = G / NB;
   __shared__ int grab_sh;
   const int live_steps = min(nsteps[0], S_cap);
@@ -145,14 +147,14 @@ __global__ void run_counts_kernel(const int* __restrict__ a_idx,
         ti = a_idx[s];
 #pragma unroll
         for (int m = 0; m < K; ++m) {
-          float a[4 * RA];
+          T a[4 * RA];
           ibvh::load_a_rec<KIND>(a_fields, Ta, G, ti, jc[m], a);
           ibvh::store_rec<RA>(a_s, jc[m], a);
         }
         team.sync();
         loaded = s;
       }
-      float b[K][4 * RB];
+      T b[K][4 * RB];
 #pragma unroll
       for (int m = 0; m < K; ++m)
         ibvh::load_b_rec<KIND>(b_fields, Tb, G, tj_q, jc[m], b[m]);
@@ -167,10 +169,10 @@ __global__ void run_counts_kernel(const int* __restrict__ a_idx,
         bits &= ~(((1 << len) - 1) << r0);
         const int i0 = r0 * BH, i1 = (r0 + len) * BH;
         if (diag)
-          count_rows<KIND, K, MOMENTS, true>(a_s, i0, min(i1, jc[K - 1]), b,
-                                             jc, c, sw);
+          count_rows<T, KIND, K, MOMENTS, true>(a_s, i0, min(i1, jc[K - 1]),
+                                                b, jc, c, sw);
         else
-          count_rows<KIND, K, MOMENTS, false>(a_s, i0, i1, b, jc, c, sw);
+          count_rows<T, KIND, K, MOMENTS, false>(a_s, i0, i1, b, jc, c, sw);
       }
       if constexpr (MOMENTS) {
         int* wrd = words + ((size_t)slot_q * R + t_q) * WORD_LANES;
@@ -220,26 +222,26 @@ __global__ void run_counts_kernel(const int* __restrict__ a_idx,
   ibvh::grid_zero(colmax, live, all);
 }
 
-template <int KIND, int K, bool WARP>
+template <typename T, int KIND, int K, bool WARP>
 void launch_kind(bool moments, const void* a_idx, const void* run_idx,
                  const void* bm, const void* nsteps, const void* a_fields,
                  const void* b_fields, void* counts, void* colmax,
                  void* words, void* work, int S_cap, int W, int R, int NB,
                  int Ta, int Tb, int G, int dedup, cudaStream_t stream) {
-  auto kern = moments ? run_counts_kernel<KIND, K, true, WARP>
-                      : run_counts_kernel<KIND, K, false, WARP>;
+  auto kern = moments ? run_counts_kernel<T, KIND, K, true, WARP>
+                      : run_counts_kernel<T, KIND, K, false, WARP>;
   // teams of one warp go WARP_TEAMS to a block; a larger team is the block
   const int threads = WARP ? 32 * ibvh::WARP_TEAMS : G / K;
   const int teams = threads / (G / K);
   const size_t shmem =
-      (size_t)teams * G * ibvh::Rec<KIND>::RA * sizeof(float4) +
+      (size_t)teams * G * ibvh::Rec<KIND>::RA * sizeof(ibvh::rec_t<T>) +
       (WARP ? 0 : 2 * (size_t)(threads / 32) * sizeof(int));
   const long long pairs = (long long)S_cap * W * R;
   const int blocks = ibvh::persistent_blocks(kern, threads, shmem,
                                              (pairs + teams - 1) / teams);
   kern<<<blocks, threads, shmem, stream>>>(
       (const int*)a_idx, (const int*)run_idx, (const int*)bm,
-      (const int*)nsteps, (const float*)a_fields, (const float*)b_fields,
+      (const int*)nsteps, (const T*)a_fields, (const T*)b_fields,
       (int*)counts, (int*)colmax, (int*)words, (int*)work, S_cap, W, R, NB,
       Ta, Tb, dedup);
 }
@@ -247,9 +249,9 @@ void launch_kind(bool moments, const void* a_idx, const void* run_idx,
 }  // namespace
 
 // a_idx: (S_cap,) i32; run_idx: (S_cap*W,) i32; bm: (R*NB/32, S_cap*W) i32
-// band words; nsteps: (1,) i32; a_fields: (FA, Ta, G) f32; b_fields:
-// (FB, Tb, G) f32 (may be a_fields); counts, colmax: (S_cap*W*R,) i32,
-// 16-byte aligned; words: (S_cap*W*R, 128) i32 or null (no moments; with
+// band words; nsteps: (1,) i32; a_fields: (FA, Ta, G); b_fields: (FB, Tb,
+// G) (may be a_fields); both float (value_bits 32) or double (64);
+// counts, colmax: (S_cap*W*R,) i32, 16-byte aligned; words: (S_cap*W*R, 128) i32 or null (no moments; with
 // moments G <= 128; only the rows of live pairs are written); work: (1,)
 // i32, zeroed by the caller.  kind: 0 sphere, 1 box, 2 ray_box, 3
 // ray_sphere.  G is the tile size (a multiple of 32, at most 1024).
@@ -260,17 +262,19 @@ extern "C" int run_counts_launch(const void* a_idx, const void* run_idx,
                                  void* counts, void* colmax, void* words,
                                  void* work, int S_cap, int W, int R, int NB,
                                  int Ta, int Tb, int G, int kind, int dedup,
-                                 void* stream) {
+                                 int value_bits, void* stream) {
   if (G % 32 != 0 || G < 32 || G > 1024 || NB < 1 || 32 % NB != 0 ||
       G % NB != 0 || R < 1 || R > 32 || R % (32 / NB) != 0 || W < 1 ||
       (words != nullptr && G > WORD_LANES) ||
       ((size_t)counts & 15) != 0 || ((size_t)colmax & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (S_cap > 0) {
-    IBVH_DISPATCH_KIND(kind, IBVH_DISPATCH_TEAM(
-        G, launch_kind, words != nullptr, a_idx, run_idx, bm, nsteps,
-        a_fields, b_fields, counts, colmax, words, work, S_cap, W, R, NB, Ta,
-        Tb, G, dedup, (cudaStream_t)stream))
+    IBVH_DISPATCH_VALUE(
+        value_bits,
+        IBVH_DISPATCH_KIND(kind, IBVH_DISPATCH_TEAM(
+            G, launch_kind, words != nullptr, a_idx, run_idx, bm, nsteps,
+            a_fields, b_fields, counts, colmax, words, work, S_cap, W, R, NB,
+            Ta, Tb, G, dedup, (cudaStream_t)stream)))
   }
   return (int)cudaGetLastError();
 }

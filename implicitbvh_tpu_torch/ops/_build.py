@@ -117,6 +117,23 @@ def check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_values(t: torch.Tensor, name: str, like=None,
+                 device=None) -> int:
+    """Raise unless ``t`` is a contiguous float32 or float64 tensor (of
+    ``like``'s dtype when given, and on ``device``); returns the kernels'
+    ``value_bits``, 32 or 64."""
+    if like is not None:
+        check(t, name, like.dtype, device=device)
+    elif isinstance(t, torch.Tensor) and t.dtype in (torch.float32,
+                                                     torch.float64):
+        check(t, name, t.dtype, device=device)
+    else:
+        got = t.dtype if isinstance(t, torch.Tensor) else type(t).__name__
+        raise TypeError(f"{name} must be torch.float32 or torch.float64, "
+                        f"got {got}")
+    return 64 if t.dtype == torch.float64 else 32
+
+
 def cuda_device(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU tensor
     (the plain version runs); raises for any other device."""

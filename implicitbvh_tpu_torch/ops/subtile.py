@@ -5,8 +5,9 @@ Replaces ``implicitbvh_tpu/ops/subtile.py:subtile_band_bits``
 for a-tile ``si[p]*32+i`` and b-tile ``sj[p]*32+j``, an NB-bit word whose
 bit ``r`` is set iff sub-band ``r`` of the a-tile overlaps the b-tile's
 AABB.  The count kernel skips the dead bands, and ``bits > 0`` is the pair
-filter.  The kernel (``csrc/band_bits.cu``) is bound by bytes on the H100:
-a persistent grid of warps, one slot per warp, 16-byte stores.
+filter.  The bounds are float32 or float64, both of one type.  The kernel
+(``csrc/band_bits.cu``, a template on the value type) is bound by bytes on
+the H100: a persistent grid of warps, one slot per warp, 16-byte stores.
 """
 
 from __future__ import annotations
@@ -44,9 +45,10 @@ def subtile_band_bits_plain(sub, tiles, si, sj, nsp, *, triangle=True):
 def subtile_band_bits(sub, tiles, si, sj, nsp, *, triangle=True):
     """Band-bit words for every candidate supertile pair.
 
-    - ``sub``: (6, Ta, NB) f32 sub-band bounds of the a side, rows
-      ``lo0, lo1, lo2, up0, up1, up2``; NB in {4, 8, 16}.
-    - ``tiles``: (6, Tb) f32 tile bounds of the b side, same rows.
+    - ``sub``: (6, Ta, NB) float32 or float64 sub-band bounds of the a
+      side, rows ``lo0, lo1, lo2, up0, up1, up2``; NB in {4, 8, 16}.
+    - ``tiles``: (6, Tb) tile bounds of the b side, same rows and dtype
+      (the caller widens a float32 side against a float64 one).
     - ``si``/``sj``: (SP_cap,) int32 supertile rows/columns.
     - ``nsp``: (1,) int32 number of live slots (read on the device).
 
@@ -60,10 +62,10 @@ def subtile_band_bits(sub, tiles, si, sj, nsp, *, triangle=True):
     only the 32 live columns of each row.
     """
     dev = sub.device
-    _build.check(sub, "sub", torch.float32)
+    value_bits = _build.check_values(sub, "sub")
     if sub.dim() != 3 or sub.shape[0] != 6 or sub.shape[2] not in (4, 8, 16):
         raise ValueError(f"sub must be (6, Ta, 4|8|16), got {tuple(sub.shape)}")
-    _build.check(tiles, "tiles", torch.float32, device=dev)
+    _build.check_values(tiles, "tiles", like=sub, device=dev)
     if tiles.dim() != 2 or tiles.shape[0] != 6:
         raise ValueError(f"tiles must be (6, Tb), got {tuple(tiles.shape)}")
     SP_cap = si.shape[0]
@@ -75,13 +77,13 @@ def subtile_band_bits(sub, tiles, si, sj, nsp, *, triangle=True):
                                        triangle=triangle)
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("band_bits", "band_bits_launch",
-                          [P] * 6 + [I] * 5 + [P])
+                          [P] * 6 + [I] * 6 + [P])
     out = torch.empty((SP_cap, SS, SS), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _build.launch(fn, "band_bits", sub.data_ptr(), tiles.data_ptr(),
                       si.data_ptr(), sj.data_ptr(), nsp.data_ptr(),
                       out.data_ptr(), SP_cap, sub.shape[1], tiles.shape[1],
-                      sub.shape[2], int(triangle))
+                      sub.shape[2], int(triangle), value_bits)
     subtile_band_bits.launches += 1
     return out
 

@@ -11,9 +11,12 @@ Replaces, from ``implicitbvh_tpu/ops/tile_contact.py``:
 
 Each takes one of four masks (``MASK_FIELD_COUNTS``): ``sphere`` and ``box``
 (leaves against leaves, self-contact) and ``ray_sphere`` and ``ray_box``
-(rays against leaves).  Fields arrive as ``(F, T, G)`` float32 tensors, T
-tiles of G sorted entries: the a set (rows, indexed by ``a_idx``) and the b
-set (columns; the a set itself when ``b_fields`` is not given).  A sphere
+(rays against leaves).  Fields arrive as ``(F, T, G)`` tensors, T tiles of G
+sorted entries: the a set (rows, indexed by ``a_idx``) and the b set
+(columns; the a set itself when ``b_fields`` is not given), both float32 or
+both float64 (the caller widens a float32 set against a float64 one, which
+is exact).  The kernels are templates on the value type and the plain
+versions compute in the fields' dtype.  A sphere
 is ``x0, x1, x2, r``, a box ``lo0, lo1, lo2, up0, up1, up2``, a ray ``p0,
 p1, p2, d0, d1, d2``.  Padded entries are NaN, so that every predicate on
 them is false.
@@ -49,15 +52,15 @@ _CHUNK_TESTS = 1 << 24   # leaf tests per batch in the plain versions
 
 def _check_fields(a_fields, b_fields, mask_kind, dedup):
     """Validate the two field sets; returns the b set (the a set when
-    ``b_fields`` is None)."""
+    ``b_fields`` is None) and the kernels' ``value_bits``."""
     if mask_kind not in MASK_FIELD_COUNTS:
         raise ValueError(f"mask_kind must be one of "
                          f"{sorted(MASK_FIELD_COUNTS)}, got {mask_kind!r}")
     if b_fields is None:
         b_fields = a_fields
-    _build.check(a_fields, "a_fields", torch.float32)
-    _build.check(b_fields, "b_fields", torch.float32,
-                 device=a_fields.device)
+    value_bits = _build.check_values(a_fields, "a_fields")
+    _build.check_values(b_fields, "b_fields", like=a_fields,
+                        device=a_fields.device)
     G = a_fields.shape[-1]
     for f, name, n in zip((a_fields, b_fields), ("a_fields", "b_fields"),
                           MASK_FIELD_COUNTS[mask_kind]):
@@ -68,7 +71,7 @@ def _check_fields(a_fields, b_fields, mask_kind, dedup):
         raise ValueError(f"tile size {G} must be a multiple of 32, <= 1024")
     if dedup and b_fields is not a_fields:
         raise ValueError("dedup (the j > i triangle) needs one field set")
-    return b_fields
+    return b_fields, value_bits
 
 
 def _pair_masks(a_fields, b_fields, ti, tj, band_bits, NB, mask_kind, dedup):
@@ -195,8 +198,9 @@ def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
     - ``bm_words``: (R*NB/32, S_cap*W) int32 band words, NB bits per tile,
       32/NB tiles per word; a zero tile is skipped.
     - ``nsteps``: (1,) int32 live steps (read on the device).
-    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) float32 field
-      sets of the mask (``b_fields`` defaults to ``a_fields``).
+    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) field sets of
+      the mask, both float32 or both float64 (``b_fields`` defaults to
+      ``a_fields``).
     - ``dedup``: the j > i triangle on diagonal pairs (one field set only).
 
     Returns ``(counts, colmax)``, each (S_cap*W*R,) int32 in (step, w, t)
@@ -218,7 +222,8 @@ def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
     zeroes the dead steps' counts itself, so every output is allocated
     uninitialised.
     """
-    b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
+    b_fields, value_bits = _check_fields(a_fields, b_fields, mask_kind,
+                                         dedup)
     S_cap, W = _check_runs(a_idx, run_idx, bm_words, nsteps, a_fields, R, NB)
     G = a_fields.shape[2]
     if moments and G > WORD_LANES:
@@ -229,7 +234,7 @@ def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
             mask_kind=mask_kind, R=R, NB=NB, dedup=dedup, moments=moments)
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("run_counts", "run_counts_launch",
-                          [P] * 10 + [I] * 9 + [P])
+                          [P] * 10 + [I] * 10 + [P])
     dev = a_fields.device
     counts = torch.empty(S_cap * W * R, dtype=torch.int32, device=dev)
     colmax = torch.empty_like(counts)
@@ -244,7 +249,7 @@ def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
                       words.data_ptr() if moments else None, work.data_ptr(),
                       S_cap, W, R, NB,
                       a_fields.shape[1], b_fields.shape[1], G,
-                      _KIND[mask_kind], int(dedup))
+                      _KIND[mask_kind], int(dedup), value_bits)
     tile_run_counts.launches += 1
     if moments:
         return counts, colmax, words
@@ -383,8 +388,9 @@ def tile_group_emit(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
       okc << 28``: b-tile, 4 coarse live bands, exact count (<= 255) and
       the colmax <= 2 flag; pad entries carry cnt = 0.
     - ``nsteps``: (1,) int32 live steps (read on the device).
-    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) float32 field
-      sets of the mask (``b_fields`` defaults to ``a_fields``).
+    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) field sets of
+      the mask, both float32 or both float64 (``b_fields`` defaults to
+      ``a_fields``).
 
     Returns ``(gi, gj, total, flags)``: the first ``total`` entries of the
     (CAP,) int32 ``gi``/``gj`` are the global sorted positions of every
@@ -405,7 +411,8 @@ def tile_group_emit(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
     tested again); the grid zeroes the streams past the total, so the
     outputs are one uninitialised allocation.
     """
-    b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
+    b_fields, value_bits = _check_fields(a_fields, b_fields, mask_kind,
+                                         dedup)
     dev = a_fields.device
     S_cap = a_idx.shape[0]
     if S_cap == 0 or b_idx.shape[0] % S_cap:
@@ -424,7 +431,7 @@ def tile_group_emit(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
     W = b_idx.shape[0] // S_cap
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("group_emit", "group_emit_launch",
-                          [P] * 6 + [I] * 10 + [P])
+                          [P] * 6 + [I] * 11 + [P])
     # gi, gj, then the plan: total, flags, live entries, work counter and
     # the (entry, offset) list
     out = torch.empty(2 * CAP + _PLAN_HEAD + 2 * b_idx.shape[0],
@@ -435,7 +442,7 @@ def tile_group_emit(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
                       b_fields.data_ptr(), out.data_ptr(), S_cap, W,
                       a_fields.shape[1], b_fields.shape[1],
                       a_fields.shape[2], _KIND[mask_kind], int(dedup),
-                      ROW_CAP, CAP_PAIR, CAP)
+                      ROW_CAP, CAP_PAIR, CAP, value_bits)
     tile_group_emit.launches += 1
     return out[:CAP], out[CAP:2 * CAP], out[2 * CAP], out[2 * CAP + 1]
 
@@ -518,8 +525,9 @@ def tile_group_contacts(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
       the 4-bit mask of the a-tile's live bands (G/4 rows each); pad
       entries carry band 0 (and ``tj = Tb``) and match nothing.
     - ``nsteps``: (1,) int32 live steps (read on the device).
-    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) float32 field
-      sets of the mask (``b_fields`` defaults to ``a_fields``).
+    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) field sets of
+      the mask, both float32 or both float64 (``b_fields`` defaults to
+      ``a_fields``).
     - ``dedup``: keep only ``tj*G + j > ti*G + i`` (self-contact, one field
       set).
 
@@ -542,7 +550,8 @@ def tile_group_contacts(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
     a-tile prepared once for a step's W entries), count in one pass and
     write the slots in a second pass over the pairs with contacts only.
     """
-    b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
+    b_fields, value_bits = _check_fields(a_fields, b_fields, mask_kind,
+                                         dedup)
     _check_slot_caps(ROW_CAP, CAP_PAIR)
     dev = a_fields.device
     S_cap = a_idx.shape[0]
@@ -559,7 +568,7 @@ def tile_group_contacts(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
                                          b_fields, **kw)
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("group_contacts", "group_contacts_launch",
-                          [P] * 9 + [I] * 9 + [P])
+                          [P] * 9 + [I] * 10 + [P])
     gi, gj, counts, over = _slot_outputs(SW, CAP_PAIR, dev)
     with torch.cuda.device(dev):
         _build.launch(fn, "group_contacts", a_idx.data_ptr(),
@@ -568,7 +577,7 @@ def tile_group_contacts(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
                       gi.data_ptr(), gj.data_ptr(), counts.data_ptr(),
                       over.data_ptr(), S_cap, SW // S_cap, a_fields.shape[1],
                       b_fields.shape[1], a_fields.shape[2], _KIND[mask_kind],
-                      int(dedup), ROW_CAP, CAP_PAIR)
+                      int(dedup), ROW_CAP, CAP_PAIR, value_bits)
     tile_group_contacts.launches += 1
     return gi, gj, counts, over[0] > 0
 
@@ -611,8 +620,9 @@ def tile_pair_contacts(packed, npairs, a_fields, b_fields=None, *, mask_kind,
     - ``packed``: (P_cap,) int32 pairs ``ti << 16 | tj`` (int32 wrap-around
       for ``ti >= 32768``).
     - ``npairs``: (1,) int32 live pairs (read on the device).
-    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) float32 field
-      sets of the mask (``b_fields`` defaults to ``a_fields``).
+    - ``a_fields``, ``b_fields``: (Fa, Ta, G) and (Fb, Tb, G) field sets of
+      the mask, both float32 or both float64 (``b_fields`` defaults to
+      ``a_fields``).
 
     Every a-row is tested (no bands); otherwise as
     :func:`tile_group_contacts`, one pair per entry.
@@ -621,7 +631,8 @@ def tile_pair_contacts(packed, npairs, a_fields, b_fields=None, *, mask_kind,
     (``_pair_kernel``).  No path of either package calls it; it is the
     second entry point of ``csrc/group_contacts.cu``.
     """
-    b_fields = _check_fields(a_fields, b_fields, mask_kind, dedup)
+    b_fields, value_bits = _check_fields(a_fields, b_fields, mask_kind,
+                                         dedup)
     _check_slot_caps(ROW_CAP, CAP_PAIR)
     dev = a_fields.device
     P_cap = packed.shape[0]
@@ -634,7 +645,7 @@ def tile_pair_contacts(packed, npairs, a_fields, b_fields=None, *, mask_kind,
                                         **kw)
     P, I = _build.P, _build.I
     fn = _build.kernel_fn("group_contacts", "pair_contacts_launch",
-                          [P] * 8 + [I] * 8 + [P])
+                          [P] * 8 + [I] * 9 + [P])
     gi, gj, counts, over = _slot_outputs(P_cap, CAP_PAIR, dev)
     with torch.cuda.device(dev):
         _build.launch(fn, "pair_contacts", packed.data_ptr(),
@@ -642,7 +653,8 @@ def tile_pair_contacts(packed, npairs, a_fields, b_fields=None, *, mask_kind,
                       b_fields.data_ptr(), gi.data_ptr(), gj.data_ptr(),
                       counts.data_ptr(), over.data_ptr(), P_cap,
                       a_fields.shape[1], b_fields.shape[1], a_fields.shape[2],
-                      _KIND[mask_kind], int(dedup), ROW_CAP, CAP_PAIR)
+                      _KIND[mask_kind], int(dedup), ROW_CAP, CAP_PAIR,
+                      value_bits)
     tile_pair_contacts.launches += 1
     return gi, gj, counts, over[0] > 0
 

@@ -44,7 +44,7 @@ from ..raytrace import _prep_rays, _walk_rays
 from ..traverse.lvt import _scan, default_start_level_lvt
 from ..traverse.tiles import (TileTraversal, _pair_capacity_for,
                               _phase1_superpairs, _run_step_cap, _step_caps,
-                              _tiled_fields, _two_phase_slice)
+                              _tiled_sets, _two_phase_slice)
 from ..traverse.walk import route_walk
 from ..utils import resolve_device
 from ..volumes import BBox, BSphere
@@ -220,12 +220,9 @@ def _local_tiles(bvh1: BVH, bvh2: Optional[BVH], capacity_per_device: int,
     if alg.pair_cap > 128:
         raise ValueError("sharded tile path needs pair_cap <= 128 "
                          "(per-pair rows append as one lane row)")
-    f1, sphere, tiles1, sub1, T1 = _tiled_fields(bvh1, G, NB)
-    if bvh2 is None:
-        fsets, tiles2, T2, leaves2 = (f1,), None, T1, bvh1.leaves
-    else:
-        f2, _, tiles2, _, T2 = _tiled_fields(bvh2, G)
-        fsets, leaves2 = (f1, f2), bvh2.leaves
+    fsets, sphere, tiles1, sub1, T1, tiles2, T2 = _tiled_sets(bvh1, bvh2, G,
+                                                              NB)
+    leaves2 = bvh1.leaves if bvh2 is None else bvh2.leaves
     if max(T1, T2) >= 1 << 16:
         raise ValueError("tile count exceeds 65536; raise the tile size")
     pair_capacity = _pair_capacity_for((T1 + T2) // 2)

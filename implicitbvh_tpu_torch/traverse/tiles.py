@@ -194,6 +194,25 @@ def _tiled_fields(bvh: BVH, G: int, NB: int = 4):
     return fields, sphere, tiles, sub, T
 
 
+def _tiled_sets(bvh1: BVH, bvh2: Optional[BVH], G: int, NB: int = 4):
+    """The tile engine's inputs for ``bvh1`` with itself (``bvh2`` None) or
+    against ``bvh2``: each tree's fields and tile bounds, and bvh1's
+    sub-band bounds, in that tree's own type (:func:`_tiled_fields`).  A
+    float32 tree against a float64 one is then widened to float64 before
+    any kernel: the widening is exact, and it is what the JAX package's
+    promotion inside its kernels amounts to.  Returns ``(fsets, sphere,
+    tiles1, sub1, T1, tiles2, T2)``, ``fsets`` one field set or two,
+    ``tiles2`` None for one tree."""
+    f1, sphere, tiles1, sub1, T1 = _tiled_fields(bvh1, G, NB)
+    if bvh2 is None:
+        return (f1,), sphere, tiles1, sub1, T1, None, T1
+    f2, _, tiles2, _, T2 = _tiled_fields(bvh2, G)
+    dt = torch.promote_types(f1.dtype, f2.dtype)
+    f1, tiles1, sub1, f2, tiles2 = (
+        t.to(dt) for t in (f1, tiles1, sub1, f2, tiles2))
+    return (f1, f2), sphere, tiles1, sub1, T1, tiles2, T2
+
+
 def _supertile_bounds(tiles):
     """(lo (3, S), up (3, S), S): bounds of the supertiles of SS tiles."""
     T = tiles.shape[1]
@@ -584,16 +603,13 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
     NB = alg.bands
     pair = bvh2 is not None
     two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
-    f1, sphere, tiles1, sub1, T1 = _tiled_fields(bvh1, G, NB)
-    if pair:
-        if bvh1.leaf_kind is not bvh2.leaf_kind:
-            raise NotImplementedError(
-                "tile pair traversal needs leaves of one kind in both BVHs; "
-                "LVTTraversal() takes mixed kinds")
-        f2, _, tiles2, _, T2 = _tiled_fields(bvh2, G)
-        fsets, leaves2 = (f1, f2), bvh2.leaves
-    else:
-        fsets, tiles2, T2, leaves2 = (f1,), None, T1, bvh1.leaves
+    if pair and bvh1.leaf_kind is not bvh2.leaf_kind:
+        raise NotImplementedError(
+            "tile pair traversal needs leaves of one kind in both BVHs; "
+            "LVTTraversal() takes mixed kinds")
+    fsets, sphere, tiles1, sub1, T1, tiles2, T2 = _tiled_sets(bvh1, bvh2, G,
+                                                              NB)
+    leaves2 = bvh2.leaves if pair else bvh1.leaves
     if max(T1, T2) >= 1 << 16:
         raise ValueError("tile count exceeds 65536; raise the tile size")
     if pair_capacity is None:

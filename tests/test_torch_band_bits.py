@@ -4,12 +4,13 @@ On the CPU: the plain version against a loop over the slots (numpy, each
 word built bit by bit from the six comparisons), at NB 4, 8 and 16, tile
 counts ``Ta``/``Tb`` that are not multiples of 32 or of 4, ``nsp`` of 0,
 between 0 and ``SP_cap``, equal to it and above it, and ``triangle`` on and
-off.  ``gpu``-marked tests hold the CUDA kernel against the plain version,
-bit for bit, on the same cases, on an ``SP_cap`` past the persistent
-grid's warps, and on inputs whose pointers are not 16-byte aligned (the
-kernel's scalar loads); they skip without a card.  Every comparison is
-exact: the words are integers built from comparisons of the same float32
-values.  Bounds lie on a lattice of halves, so ties (``lo == up``) occur.
+off, in float32 and in float64 (the same lattice values; a bound of one
+type against tiles of the other is refused).  ``gpu``-marked tests hold
+the CUDA kernel against the plain version, bit for bit, on the same cases
+in both types, on an ``SP_cap`` past the persistent grid's warps, and on
+inputs whose pointers are not 16-byte aligned (the kernel's scalar loads);
+they skip without a card.  Every comparison is exact: the words are
+integers built from comparisons of the same values.  Bounds lie on a lattice of halves, so ties (``lo == up``) occur.
 No JAX here: ``tests/test_torch_kernels.py`` holds the plain version
 against the Pallas kernel.
 """
@@ -33,10 +34,12 @@ CASES = {
 }
 
 
-def band_inputs(NB, Ta, Tb, SP_cap, nsp, seed, offset=0):
+def band_inputs(NB, Ta, Tb, SP_cap, nsp, seed, offset=0,
+                dtype=torch.float32):
     """Sub-band bounds (6, Ta, NB), tile bounds (6, Tb), superpair slots and
-    the live count.  ``offset`` > 0 places ``sub`` and ``tiles`` that many
-    floats into larger buffers (contiguous, not 16-byte aligned)."""
+    the live count, the bounds in ``dtype``.  ``offset`` > 0 places ``sub``
+    and ``tiles`` that many values into larger buffers (contiguous, not
+    16-byte aligned)."""
     rng = np.random.default_rng(seed)
     span = 6.0
 
@@ -46,7 +49,7 @@ def band_inputs(NB, Ta, Tb, SP_cap, nsp, seed, offset=0):
         return np.concatenate([lo, up]).astype(np.float32)
 
     def placed(a):
-        buf = torch.zeros(a.size + offset, dtype=torch.float32)
+        buf = torch.zeros(a.size + offset, dtype=dtype)
         view = buf[offset:].view(a.shape)
         view.copy_(torch.from_numpy(a))
         return view
@@ -96,6 +99,29 @@ def test_plain_matches_loop(case):
     assert not want[min(nsp, SP_cap):].any()
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_loop_float64(case):
+    """The same words from float64 bounds."""
+    NB, Ta, Tb, SP_cap, nsp, triangle = CASES[case]
+    args = band_inputs(NB, Ta, Tb, SP_cap, nsp, seed=len(case),
+                       dtype=torch.float64)
+    got = ops.subtile_band_bits(*args, triangle=triangle)   # CPU: plain
+    assert np.array_equal(got.numpy(), bits_loop(*args, triangle))
+    f32 = band_inputs(NB, Ta, Tb, SP_cap, nsp, seed=len(case))
+    assert torch.equal(got, ops.subtile_band_bits(*f32, triangle=triangle))
+
+
+def test_wrapper_takes_one_value_type():
+    """float32 or float64 bounds, both of one type: the caller widens."""
+    sub, tiles, si, sj, nsp = band_inputs(4, 40, 40, 4, 2, seed=0)
+    with pytest.raises(TypeError, match="tiles must be torch.float32"):
+        ops.subtile_band_bits(sub, tiles.double(), si, sj, nsp)
+    with pytest.raises(TypeError, match="tiles must be torch.float64"):
+        ops.subtile_band_bits(sub.double(), tiles, si, sj, nsp)
+    with pytest.raises(TypeError, match="sub must be torch.float32 or"):
+        ops.subtile_band_bits(sub.half(), tiles.half(), si, sj, nsp)
+
+
 def test_wrapper_checks():
     args = band_inputs(4, 40, 40, 4, 2, seed=0)
     sub, tiles, si, sj, nsp = args
@@ -143,11 +169,25 @@ def test_kernel_matches_plain_on_card(cuda, case, offset):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_matches_plain_on_card_float64(cuda, case, offset):
+    """The double kernel on every edge case: aligned (double2 loads) and
+    one value off alignment (scalar loads)."""
+    NB, Ta, Tb, SP_cap, nsp, triangle = CASES[case]
+    args = band_inputs(NB, Ta, Tb, SP_cap, nsp, seed=len(case),
+                       offset=offset, dtype=torch.float64)
+    assert _card_equals_plain(cuda, args, triangle), case
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("NB", [4, 16])
 @pytest.mark.parametrize("triangle", [True, False])
 def test_kernel_past_the_persistent_grid_on_card(cuda, NB, triangle):
     """More slots than the persistent grid has warps (132 SMs hold at most
     8,448 warps of 32), so a warp takes several; nsp cuts them midway."""
     SP_cap = 20011
-    args = band_inputs(NB, 400, 390, SP_cap, 15000, seed=NB)
-    assert _card_equals_plain(cuda, args, triangle)
+    for dtype in (torch.float32, torch.float64):
+        args = band_inputs(NB, 400, 390, SP_cap, 15000, seed=NB,
+                           dtype=dtype)
+        assert _card_equals_plain(cuda, args, triangle), dtype

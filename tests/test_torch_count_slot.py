@@ -14,8 +14,9 @@ moment decode reads no word row outside the live pairs (the card leaves
 those rows unwritten).  ``gpu``-marked tests hold each kernel against its
 plain version at tiles of 32 to 256 (one warp and several per block), all
 four masks, NB 4/8/16 and R 8/32, and at tiles 800 and 1024, where the
-slot kernels need more than 48 KB of shared memory; they skip without a
-card.  No JAX here: the file runs as it is on a machine that has only the
+slot kernels need more than 48 KB of shared memory; in float32 and again
+in float64 (the same lattice values, exact in both; double records pass
+48 KB from tile 128); they skip without a card.  No JAX here: the file runs as it is on a machine that has only the
 port.
 """
 
@@ -270,18 +271,41 @@ def _on(dev, *ts):
     return tuple(t.to(dev) for t in ts)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("G,NB,R", [
+def _fields_on(dev, dtype, a, b):
+    """A field set pair on ``dev`` in ``dtype``; one set stays one."""
+    a2 = a.to(dev, dtype)
+    return a2, (a2 if b is a else b.to(dev, dtype))
+
+
+RUN_SHAPES = [
     (G, NB, R) for G in (32, 64, 128) for NB in (4, 8, 16) for R in (8, 32)
 ] + [(96, 4, 8), (96, 16, 32), (256, 4, 8), (256, 8, 32), (800, 16, 8),
-   (1024, 4, 8), (1024, 8, 32)])
+     (1024, 4, 8), (1024, 8, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,NB,R", RUN_SHAPES)
 def test_run_counts_match_plain_on_card(cuda, G, NB, R):
     """B2 equals its plain version: counts, colmax and, with moments, the
     word rows of the live pairs; every mask, one and two field sets,
     dedup on the diagonal, every nsteps case."""
+    _check_run_counts(cuda, G, NB, R, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,NB,R", [(32, 4, 8), (64, 8, 32), (96, 16, 32),
+                                    (128, 4, 8), (128, 16, 8), (256, 8, 32),
+                                    (800, 16, 8), (1024, 4, 8)])
+def test_run_counts_match_plain_on_card_float64(cuda, G, NB, R):
+    """B2's double kernel equals its plain version, as in float32."""
+    _check_run_counts(cuda, G, NB, R, torch.float64)
+
+
+def _check_run_counts(cuda, G, NB, R, dtype):
     cases = [(k, False) for k in MASKS] + [("sphere", True), ("box", True)]
     for kind, dedup in cases:
-        a, b = _on(cuda, *field_sets(kind, G, G + NB + R, dedup))
+        a, b = _fields_on(cuda, dtype, *field_sets(kind, G, G + NB + R,
+                                                   dedup))
         a_idx, run_idx, bm, nsteps_list = run_inputs(G, NB, R, G * R + NB,
                                                      dedup)
         a_idx, run_idx, bm = _on(cuda, a_idx, run_idx, bm)
@@ -320,9 +344,21 @@ def test_slot_kernels_match_plain_on_card(cuda, G):
     overflow flag and every lane below min(count, CAP_PAIR); every mask,
     one and two field sets, dedup on the diagonal, dead steps, entries and
     bands, every nsteps / npairs case, with and without slot overflow."""
+    _check_slot_kernels(cuda, G, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [32, 64, 96, 128, 256, 800, 1024])
+def test_slot_kernels_match_plain_on_card_float64(cuda, G):
+    """B4 and B6's double kernels equal their plain versions, as in
+    float32 (128 KB of records a block at tile 1024)."""
+    _check_slot_kernels(cuda, G, torch.float64)
+
+
+def _check_slot_kernels(cuda, G, dtype):
     cases = [(k, False) for k in MASKS] + [("sphere", True), ("box", True)]
     for kind, dedup in cases:
-        a, b = _on(cuda, *field_sets(kind, G, 3 * G, dedup))
+        a, b = _fields_on(cuda, dtype, *field_sets(kind, G, 3 * G, dedup))
         Ta = a.shape[1]
         a_idx, b_idx, nsteps_list = group_inputs(G, dedup, Ta=Ta)
         a_idx, b_idx = _on(cuda, a_idx, b_idx)

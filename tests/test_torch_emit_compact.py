@@ -197,9 +197,9 @@ def _cluster(f):
         f[:3, :, :12], f[3:, :, :12] = 1.5, 2.5
 
 
-def emit_scenes(G, dev=None):
+def emit_scenes(G, dev=None, dtype=torch.float32):
     """(kind, dedup, a, b, a_idx, b_idx) of every mask, one and two field
-    sets."""
+    sets, the fields in ``dtype`` (the lattice values are exact in both)."""
     cases = [(k, False) for k in MASKS] + [("sphere", True), ("box", True)]
     for n, (kind, dedup) in enumerate(cases):
         a, b = field_sets(kind, G, 7 * G + n, dedup)
@@ -207,6 +207,8 @@ def emit_scenes(G, dev=None):
             for f in {id(a): a, id(b): b}.values():
                 _cluster(f)
         a_idx, b_idx = emit_inputs(kind, G, G + n, dedup, a, b)
+        a = a.to(dtype)
+        b = a if dedup else b.to(dtype)
         if dev is not None:
             a, b, a_idx, b_idx = (t.to(dev) for t in (a, b, a_idx, b_idx))
         yield kind, dedup, a, (None if dedup else b), a_idx, b_idx
@@ -318,7 +320,18 @@ def test_group_emit_matches_plain_on_card(cuda, G):
     total and the flags): every mask, one and two field sets, okc and slow
     entries, rows over ROW_CAP, streams over CAP, every nsteps case, NaN
     rows and contacts on the boundary."""
-    for scene in emit_scenes(G, cuda):
+    _check_group_emit(cuda, G, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [32, 64, 128, 256, 800, 1024])
+def test_group_emit_matches_plain_on_card_float64(cuda, G):
+    """B3's double kernel equals its plain version, as in float32."""
+    _check_group_emit(cuda, G, torch.float64)
+
+
+def _check_group_emit(cuda, G, dtype):
+    for scene in emit_scenes(G, cuda, dtype):
         for args, kw in emit_calls(*scene):
             got = ops.tile_group_emit(*args, **kw)
             want = ops.tile_group_emit_plain(*args, **kw)
