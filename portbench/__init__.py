@@ -1,0 +1,3 @@
+"""The benchmark of ``implicitbvh_tpu_torch``: run one cell with
+``python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` (see README.md)."""
