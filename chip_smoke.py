@@ -378,7 +378,7 @@ def main() -> int:
         print(f"chip_smoke: run it from the repository's root ({e})",
               file=sys.stderr)
         return 2
-    from implicitbvh_tpu_torch import ops
+    from implicitbvh_tpu_torch import ops, tracing
     from implicitbvh_tpu_torch.ops import _build
     from implicitbvh_tpu_torch.traverse import bfs, dfs, ray_tiles, tiles
     from implicitbvh_tpu_torch.traverse import walk as twalk
@@ -627,7 +627,8 @@ def main() -> int:
         return keys
 
     def launch_counts():
-        return {name: k[0].launches for name, k in kernels.items()}
+        return {name: ops.launch_count(k[0])
+                for name, k in kernels.items()}
 
     def counted(fixed_call):
         """``fixed_call()`` with the launch counts set to 0 just before and
@@ -724,7 +725,7 @@ def main() -> int:
                  np.float32),
         np.array([0.5, 0.6, 0.5, 0.4, 0.6], np.float32), device=dev)))
     if demo.contacts_list() != [(1, 2), (2, 3), (4, 5)] or \
-            ops.tile_group_contacts.launches < 1:
+            ops.launch_count(ops.tile_group_contacts) < 1:
         raise AssertionError(f"README demo on the card: "
                              f"{demo.contacts_list()}")
     log(f"README demo on the card (default options, capacity "
@@ -1657,13 +1658,13 @@ def main() -> int:
         total; then the wrapper's median of 7 (CUDA events)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        bfs._run_with_growth.tries = 0
+        tracing.reset("bfs.runs")
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         out = query()
         torch.cuda.synchronize()
         once = (time.perf_counter() - t0) * 1e3
-        tries = bfs._run_with_growth.tries
+        tries = tracing.counter("bfs.runs")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if out.cache1.device.type != "cuda" or not torch.equal(
                 keys_of(out.num_contacts, out.cache1), want):

@@ -24,6 +24,7 @@ from typing import Optional, Union
 
 import torch
 
+from . import tracing
 from .morton import (DefaultMortonAlgorithm, ExtendedMortonAlgorithm,
                      morton_encode, morton_encode_extended)
 from .options import DEFAULT_OPTIONS, BVHOptions
@@ -221,6 +222,17 @@ def build(bounding_volumes: Union[Volume, Leaves], node_kind=BBox, *,
     nodes of ``node_kind`` (BBox, or BSphere over sphere leaves).  Runs on
     the leaves' device."""
     if isinstance(bounding_volumes, Leaves):
+        device = bounding_volumes.volume.device
+    else:
+        device = bounding_volumes.device
+    tracing.count("calls.build")
+    with tracing.span("build", device):
+        return _build(bounding_volumes, node_kind, built_level, options,
+                      indices)
+
+
+def _build(bounding_volumes, node_kind, built_level, options, indices) -> BVH:
+    if isinstance(bounding_volumes, Leaves):
         leaves = bounding_volumes
         leaves = Leaves(leaves.volume,
                         as_tensor(leaves.index, options.index_dtype,
@@ -229,16 +241,20 @@ def build(bounding_volumes: Union[Volume, Leaves], node_kind=BBox, *,
         leaves = wrap_bounding_volumes(bounding_volumes, options, indices)
     tree = ImplicitTree.from_num_leaves(leaves.index.shape[0])
     built_ilevel = compute_build_level(tree, built_level)
+    dev = leaves.index.device
 
     alg = options.morton
-    if isinstance(alg, ExtendedMortonAlgorithm):
-        morton = morton_encode_extended(leaves.volume, alg)
-    elif isinstance(alg, DefaultMortonAlgorithm):
-        morton = morton_encode(center_coords(leaves.volume), alg)
-    else:
-        raise TypeError(f"unsupported morton algorithm {alg}")
-    leaves = _sort_by_morton(Leaves(leaves.volume, leaves.index, morton))
-    nodes = _aggregate(leaves.volume, tree, built_ilevel, node_kind)
-    skips = compute_skips(tree, options.index_dtype, leaves.index.device)
+    with tracing.span("build.morton", dev):
+        if isinstance(alg, ExtendedMortonAlgorithm):
+            morton = morton_encode_extended(leaves.volume, alg)
+        elif isinstance(alg, DefaultMortonAlgorithm):
+            morton = morton_encode(center_coords(leaves.volume), alg)
+        else:
+            raise TypeError(f"unsupported morton algorithm {alg}")
+    with tracing.span("build.sort", dev):
+        leaves = _sort_by_morton(Leaves(leaves.volume, leaves.index, morton))
+    with tracing.span("build.nodes", dev):
+        nodes = _aggregate(leaves.volume, tree, built_ilevel, node_kind)
+        skips = compute_skips(tree, options.index_dtype, dev)
     return BVH(skips=skips, nodes=nodes, leaves=leaves,
                built_level=built_ilevel, tree=tree)

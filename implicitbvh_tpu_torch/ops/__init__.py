@@ -2,6 +2,7 @@
 versions, and of the walks (W1, W2), whose plain versions are the traverse
 layer's torch-op loops."""
 
+from .. import tracing
 from .compaction import (compact_flat, compact_flat_plain, finish_compact,
                          tile_compact, tile_compact_plain)
 from .subtile import subtile_band_bits, subtile_band_bits_plain
@@ -20,13 +21,20 @@ KERNELS = (subtile_band_bits, tile_run_counts, tile_group_emit,
 
 def reset_launch_counts():
     """Set every kernel wrapper's launch count to 0."""
-    for k in KERNELS:
-        k.launches = 0
+    tracing.reset("launches.")
+
+
+def launch_count(kernel) -> int:
+    """Launches of the kernel wrapper ``kernel`` (one of ``KERNELS``) since
+    the last :func:`reset_launch_counts`: the counter
+    ``launches.<name>`` of ``tracing``."""
+    return tracing.counter("launches." + kernel.__name__)
 
 
 __all__ = ["KERNELS", "compact_flat", "compact_flat_plain", "dfs_lanes",
            "emit_plan",
-           "emit_plan_plain", "finish_compact", "reset_launch_counts",
+           "emit_plan_plain", "finish_compact", "launch_count",
+           "reset_launch_counts",
            "run_live_pairs", "subtile_band_bits", "subtile_band_bits_plain",
            "tile_compact", "tile_compact_plain", "tile_group_contacts",
            "tile_group_contacts_plain", "tile_group_emit",

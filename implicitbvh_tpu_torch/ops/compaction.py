@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import _build
 
 G = 128                  # a mega-tile is G rows of G lanes
@@ -101,11 +102,9 @@ def tile_compact(mask, payloads, *, cap, row_cap):
                       payloads[1].data_ptr(), slots.data_ptr(),
                       counts.data_ptr(), over.data_ptr(), tiles, cap,
                       row_cap)
-    tile_compact.launches += 1
+    tracing.count("launches.tile_compact")
     return tuple(slots.unbind(0)), counts, over.any()
 
-
-tile_compact.launches = 0
 
 
 def finish_compact(slots, counts, capacity: int):
@@ -175,9 +174,7 @@ def compact_flat(mask, payloads, *, cap, row_cap, capacity: int):
                       payloads[0].data_ptr(), payloads[1].data_ptr(),
                       buf.data_ptr(), res.data_ptr(), tiles, cap, row_cap,
                       capacity)
-    compact_flat.launches += 1
+    tracing.count("launches.compact_flat")
     return ((buf[:capacity], buf[capacity:2 * capacity]), res[2 * tiles],
             res[2 * tiles + 1:].view(torch.bool)[0])
 
-
-compact_flat.launches = 0

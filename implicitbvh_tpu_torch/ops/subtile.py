@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import _build
 
 SS = 32  # tiles per supertile
@@ -84,8 +85,6 @@ def subtile_band_bits(sub, tiles, si, sj, nsp, *, triangle=True):
                       si.data_ptr(), sj.data_ptr(), nsp.data_ptr(),
                       out.data_ptr(), SP_cap, sub.shape[1], tiles.shape[1],
                       sub.shape[2], int(triangle), value_bits)
-    subtile_band_bits.launches += 1
+    tracing.count("launches.subtile_band_bits")
     return out
 
-
-subtile_band_bits.launches = 0

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..volumes import _ray_box_test, _ray_sphere_test, _reciprocal
 from . import _build
 
@@ -250,13 +251,11 @@ def tile_run_counts(a_idx, run_idx, bm_words, nsteps, a_fields,
                       S_cap, W, R, NB,
                       a_fields.shape[1], b_fields.shape[1], G,
                       _KIND[mask_kind], int(dedup), value_bits)
-    tile_run_counts.launches += 1
+    tracing.count("launches.tile_run_counts")
     if moments:
         return counts, colmax, words
     return counts, colmax
 
-
-tile_run_counts.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -331,12 +330,10 @@ def emit_plan(b_idx, nsteps, *, S_cap, CAP_PAIR):
     with torch.cuda.device(dev):
         _build.launch(fn, "emit_plan", b_idx.data_ptr(), nsteps.data_ptr(),
                       plan.data_ptr(), S_cap, SW // S_cap, CAP_PAIR, 1)
-    emit_plan.launches += 1
+    tracing.count("launches.emit_plan")
     pairs = plan[_PLAN_HEAD:].view(SW, 2)
     return pairs[:, 0], pairs[:, 1], plan[0], plan[2]
 
-
-emit_plan.launches = 0
 
 
 def tile_group_emit_plain(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
@@ -443,11 +440,9 @@ def tile_group_emit(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
                       a_fields.shape[1], b_fields.shape[1],
                       a_fields.shape[2], _KIND[mask_kind], int(dedup),
                       ROW_CAP, CAP_PAIR, CAP, value_bits)
-    tile_group_emit.launches += 1
+    tracing.count("launches.tile_group_emit")
     return out[:CAP], out[CAP:2 * CAP], out[2 * CAP], out[2 * CAP + 1]
 
-
-tile_group_emit.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -578,11 +573,9 @@ def tile_group_contacts(a_idx, b_idx, nsteps, a_fields, b_fields=None, *,
                       over.data_ptr(), S_cap, SW // S_cap, a_fields.shape[1],
                       b_fields.shape[1], a_fields.shape[2], _KIND[mask_kind],
                       int(dedup), ROW_CAP, CAP_PAIR, value_bits)
-    tile_group_contacts.launches += 1
+    tracing.count("launches.tile_group_contacts")
     return gi, gj, counts, over[0] > 0
 
-
-tile_group_contacts.launches = 0
 
 
 def _slot_outputs(n, CAP_PAIR, dev):
@@ -655,8 +648,6 @@ def tile_pair_contacts(packed, npairs, a_fields, b_fields=None, *, mask_kind,
                       a_fields.shape[1], b_fields.shape[1], a_fields.shape[2],
                       _KIND[mask_kind], int(dedup), ROW_CAP, CAP_PAIR,
                       value_bits)
-    tile_pair_contacts.launches += 1
+    tracing.count("launches.tile_pair_contacts")
     return gi, gj, counts, over[0] > 0
 
-
-tile_pair_contacts.launches = 0

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..volumes import BBox, BSphere
 from . import _build
 
@@ -300,11 +301,9 @@ def walk_lanes(target, start_level: int, lanes, *, flip=False,
                       counts.data_ptr(), out.data_ptr(),
                       _diag(diag, a.K, dev), _ptr(own), _ptr(pos),
                       _ptr(work), *a[8:])
-    walk_lanes.launches += 1
+    tracing.count("launches.walk_lanes")
     return counts, out
 
-
-walk_lanes.launches = 0
 
 
 class DfsArgs(NamedTuple):
@@ -418,8 +417,6 @@ def dfs_lanes(bvh, start_level: int, capacity: int = 0, offsets=None,
                       counts.data_ptr(), out.data_ptr(),
                       _diag(diag, a.K, dev), *(_ptr(t) for t in i32 + i64),
                       ctl.data_ptr(), *a[5:])
-    dfs_lanes.launches += 1
+    tracing.count("launches.dfs_lanes")
     return counts, out
 
-
-dfs_lanes.launches = 0

@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from . import tracing
 from .build import BVH
 from .options import DEFAULT_OPTIONS, BVHOptions
 from .traverse.bfs import traverse_rays_bfs
@@ -95,6 +96,20 @@ def traverse_rays(bvh: BVH, points, directions,
     ``BFSTraversal()`` takes the breadth-first node-ray frontier from
     ``start_level``, with capacity growth.
     """
+    tracing.count("calls.traverse")
+    with tracing.span("traverse", bvh.device):
+        return _traverse_rays(bvh, points, directions, alg,
+                              start_level=start_level, narrow=narrow,
+                              cache=cache, options=options)
+
+
+def _traverse_rays(bvh: BVH, points, directions,
+                   alg: Optional[TraversalAlgorithm] = None, *,
+                   start_level: int = 1, narrow=None,
+                   cache: Optional[BVHTraversal] = None,
+                   options: BVHOptions = DEFAULT_OPTIONS) -> BVHTraversal:
+    """:func:`traverse_rays` with no span and no count: the tile engine's
+    growth ends here, inside the call that counted."""
     if alg is None:
         alg = TileTraversal()
     if not (bvh.built_level <= start_level <= bvh.tree.levels):
@@ -116,7 +131,7 @@ def traverse_rays(bvh: BVH, points, directions,
         raise TypeError(f"unknown traversal algorithm {alg!r}")
     counts = rays_count(bvh, p, d, start_level, narrow)
     offsets, total = _scan(counts)
-    total = int(total)
+    total = tracing.to_int(total, "rays.total")
     capacity = _round_capacity(total, options, cache)
     out = rays_write(bvh, p, d, offsets, start_level, capacity, narrow)
     return BVHTraversal(num_contacts=total, cache1=out, cache2=offsets,

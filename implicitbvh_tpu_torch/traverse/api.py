@@ -12,6 +12,7 @@ from __future__ import annotations
 import warnings
 from typing import Optional
 
+from .. import tracing
 from ..build import BVH
 from ..options import DEFAULT_OPTIONS, BVHOptions
 from . import lvt as _lvt
@@ -77,6 +78,19 @@ def traverse(bvh: BVH, *args,
     The start levels seed the tree-walking algorithms (LVT, BFS, DFS).  The
     tile engine walks no tree, so giving it one emits a ``UserWarning``.
     """
+    tracing.count("calls.traverse")
+    with tracing.span("traverse", bvh.device):
+        return _traverse(bvh, *args, start_level=start_level,
+                         start_level1=start_level1,
+                         start_level2=start_level2, narrow=narrow,
+                         cache=cache, options=options)
+
+
+def _traverse(bvh: BVH, *args, start_level=None, start_level1=None,
+              start_level2=None, narrow=None, cache=None,
+              options: BVHOptions = DEFAULT_OPTIONS) -> BVHTraversal:
+    """:func:`traverse` with no span and no count: the tile engine's growth
+    ends here, inside the call that counted."""
     bvh2: Optional[BVH] = None
     alg: Optional[TraversalAlgorithm] = None
     for a in args:
@@ -113,7 +127,7 @@ def traverse(bvh: BVH, *args,
                                    options=options)
     if isinstance(alg, TileTraversal):
         if explicit_start:
-            _warn_start_level("start_level", 2)
+            _warn_start_level("start_level", 3)
         return traverse_tiles(bvh, alg=alg, narrow=narrow, cache=cache,
                               options=options)
     if not isinstance(alg, LVTTraversal):
@@ -121,7 +135,7 @@ def traverse(bvh: BVH, *args,
 
     counts = _lvt.lvt_count_single(bvh, start_level, narrow)
     offsets, total = _lvt._scan(counts)
-    total = int(total)
+    total = tracing.to_int(total, "api.total")
     capacity = _lvt._round_capacity(total, options, cache)
     out = _lvt.lvt_write_single(bvh, offsets, start_level, capacity, narrow)
     return _finish(total, out, offsets, start_level)
@@ -140,7 +154,7 @@ def _traverse_pair(bvh1: BVH, bvh2: BVH, alg: TraversalAlgorithm, *,
 
     if isinstance(alg, TileTraversal):
         if explicit_start:
-            _warn_start_level("start_level1/start_level2", 3)
+            _warn_start_level("start_level1/start_level2", 4)
         return traverse_tiles_pair(bvh1, bvh2, alg=alg, narrow=narrow,
                                    cache=cache, options=options)
     if isinstance(alg, BFSTraversal):
@@ -156,7 +170,7 @@ def _traverse_pair(bvh1: BVH, bvh2: BVH, alg: TraversalAlgorithm, *,
         bvh1, bvh2, start_level1, start_level2)
     counts = _lvt.lvt_count_pair(lanes, target, sl, narrow, flip)
     offsets, total = _lvt._scan(counts)
-    total = int(total)
+    total = tracing.to_int(total, "api.total")
     capacity = _lvt._round_capacity(total, options, cache)
     out = _lvt.lvt_write_pair(lanes, target, offsets, sl, capacity, narrow,
                               flip)

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from .. import tracing
 from ..build import BVH
 from ..options import DEFAULT_OPTIONS, BVHOptions
 from ..utils import (k2ij_exclusive, leftleft, leftnoop, leftright,
@@ -196,19 +197,17 @@ def bfs_single_fixed(bvh: BVH, start_level: int, capacity: int,
 def _run_with_growth(fn, capacity0: int, options: BVHOptions, max_tries=10):
     """``fn(capacity)`` from ``capacity0``, grown by the options' factor
     until it does not overflow; one host sync per try.  Returns ``(total,
-    contacts, num_checks)`` with Python ints.  ``_run_with_growth.tries``
-    counts the tries."""
+    contacts, num_checks)`` with Python ints.  The counter ``bfs.runs`` of
+    ``tracing`` counts the tries."""
     cap = capacity0
     for _ in range(max_tries):
-        _run_with_growth.tries += 1
+        tracing.count("bfs.runs")
         total, out, num_checks, overflow = fn(cap)
-        if not bool(overflow):                   # the host sync
-            return int(total), out, int(num_checks)
+        if not tracing.to_bool(overflow, "bfs.overflow"):
+            return (tracing.to_int(total, "bfs.total"), out,
+                    tracing.to_int(num_checks, "bfs.checks"))
         cap = int(cap * options.capacity_growth)
     raise RuntimeError(f"BFS frontier kept overflowing (capacity {cap})")
-
-
-_run_with_growth.tries = 0
 
 
 def _bfs_capacity0(n_init: int, num_leaves: int, options: BVHOptions) -> int:

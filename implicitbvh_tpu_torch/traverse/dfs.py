@@ -21,9 +21,9 @@ each at the stack pointer plus the number of children pushed before it).
 Torch has no device-side loop, so its end test ``any(sp > 0)`` is a host
 sync.  A step leaves a lane whose stack is empty alone (``active`` gates
 every push, count and write), so the body runs in blocks of
-``BLOCK_STEPS`` steps with one test per block, as ``walk.py`` does;
-``dfs_single_fixed.steps`` and ``dfs_single_fixed.syncs`` count the steps
-run and the tests made.
+``BLOCK_STEPS`` steps with one test per block, as ``walk.py`` does; the
+counters ``dfs.steps`` and ``syncs.dfs.end`` of ``tracing`` count the
+steps run and the tests made.
 
 The sprouting rules are single-tree BFS's: i1 < i2 for pair checks, so
 only i2's right child can be virtual; a self pair (i, i) sprouts (ll, lr,
@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..build import BVH
 from ..ops._build import cuda_device
 from ..ops.walk import dfs_lanes, stack_depth
@@ -144,15 +145,10 @@ def dfs_lanes_plain(bvh: BVH, start_level: int, capacity: int = 0,
     while lanes:
         for _ in range(BLOCK_STEPS):
             st, sp, counts = body(st, sp, counts)
-        dfs_single_fixed.steps += BLOCK_STEPS
-        dfs_single_fixed.syncs += 1
-        if not bool((sp > 0).any()):          # the host sync
+        tracing.count("dfs.steps", BLOCK_STEPS)
+        if not tracing.to_bool((sp > 0).any(), "dfs.end"):
             break
     return counts, out[:max(capacity, 1)]
-
-
-dfs_single_fixed.steps = 0
-dfs_single_fixed.syncs = 0
 
 
 def traverse_dfs_single(bvh: BVH, *, start_level: int, narrow=None,
@@ -164,7 +160,7 @@ def traverse_dfs_single(bvh: BVH, *, start_level: int, narrow=None,
     user-index pairs, lane by lane.  ``cache2`` holds the offsets."""
     counts, _ = dfs_single_fixed(bvh, start_level, narrow=narrow)
     offsets, total = _scan(counts)
-    total = int(total)
+    total = tracing.to_int(total, "dfs.total")
     capacity = _round_capacity(total, options, cache)
     _, out = dfs_single_fixed(bvh, start_level, capacity=capacity,
                               offsets=offsets, narrow=narrow)

@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..build import BVH, Leaves
 from ..options import BVHOptions
 from .types import BVHTraversal
@@ -36,7 +37,7 @@ def _round_capacity(total: int, options: BVHOptions,
                     cache: Optional[BVHTraversal] = None) -> int:
     """Round a required size up to a power of two; a previous result's
     capacity is taken as it is when it has the room."""
-    need = max(int(total), options.min_capacity)
+    need = max(tracing.to_int(total, "lvt.total"), options.min_capacity)
     if cache is not None and cache.cache1.dim() == 2 \
             and cache.cache1.shape[0] >= need:
         return cache.cache1.shape[0]
@@ -44,9 +45,11 @@ def _round_capacity(total: int, options: BVHOptions,
 
 
 def _scan(counts):
-    """(exclusive prefix sums, total) of the per-lane counts."""
-    incl = torch.cumsum(counts, 0, dtype=counts.dtype)
-    return incl - counts, counts.sum(dtype=counts.dtype)
+    """(exclusive prefix sums, total) of the per-lane counts; a
+    ``walk.scan`` span."""
+    with tracing.span("walk.scan", counts.device):
+        incl = torch.cumsum(counts, 0, dtype=counts.dtype)
+        return incl - counts, counts.sum(dtype=counts.dtype)
 
 
 # --------------------------------------------------------------------------

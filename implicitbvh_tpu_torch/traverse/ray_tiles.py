@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..build import BVH
 from ..morton import DefaultMortonAlgorithm, morton_encode
 from ..options import DEFAULT_OPTIONS, BVHOptions
@@ -196,9 +197,12 @@ def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
     G = alg.tile
     p, d = _prep_rays(points, directions, bvh.leaves.volume.dtype, bvh.device)
     n_rays = p[0].shape[0]
-    fields, sphere, tiles, _, T = _tiled_fields(bvh, G)
-    perm = _sort_rays(p, d)
-    rfields, RT = _ray_tile_fields(p, d, perm, G)
+    dev = bvh.device
+    with tracing.span("rays.sort", dev):
+        perm = _sort_rays(p, d)
+    with tracing.span("rays.phase1", dev):
+        fields, sphere, tiles, _, T = _tiled_fields(bvh, G)
+        rfields, RT = _ray_tile_fields(p, d, perm, G)
     if T >= 1 << 16 or RT >= 1 << 16:
         raise ValueError("tile count exceeds 65536; raise the tile size")
     W = alg.count_w
@@ -218,16 +222,19 @@ def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
 
     if alg.pair_cap > 128 or capacity % 1024:    # the fallback
         S_cap, _ = _step_caps(pair_capacity // W + RT)
-        a_idx, b_idx, nsteps = _phase1_ray_tile_groups(rfields, tiles, W,
-                                                       S_cap)
-        gi, gj, counts, slot_overflow = tile_group_contacts(
-            a_idx, b_idx, nsteps.reshape(1), rfields, fields,
-            mask_kind=mask_kind, ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-            dedup=False)
+        with tracing.span("rays.phase1", dev):
+            a_idx, b_idx, nsteps = _phase1_ray_tile_groups(rfields, tiles,
+                                                           W, S_cap)
+        with tracing.span("rays.emit", dev):
+            gi, gj, counts, slot_overflow = tile_group_contacts(
+                a_idx, b_idx, nsteps.reshape(1), rfields, fields,
+                mask_kind=mask_kind, ROW_CAP=alg.row_cap,
+                CAP_PAIR=alg.pair_cap, dedup=False)
         # gi are ray positions and gj leaf positions: the leaf comes first
-        total, contacts = _extract_contacts(
-            gi, gj, counts, bvh.leaves.index, narrow_fn, capacity,
-            leaf_index_b=iray_map, sort_pairs=False, swap_sections=True)
+        with tracing.span("rays.finish", dev):
+            total, contacts = _extract_contacts(
+                gi, gj, counts, bvh.leaves.index, narrow_fn, capacity,
+                leaf_index_b=iray_map, sort_pairs=False, swap_sections=True)
         overflow = (((nsteps > S_cap) | (total > capacity)).int()
                     | (slot_overflow.int() << 1))
         num_checks = (_popcount(b_idx >> 16).sum().to(torch.float32)
@@ -236,12 +243,14 @@ def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
 
     R, NB, DK = alg.run_r, alg.bands, alg.decode_k
     S_cap = _run_step_cap(pair_capacity // W + RT, alg)
-    a_idx, run_idx, bm_words, nsteps, num_checks = _phase1_ray_runs(
-        rfields, tiles, W, S_cap, R, -(-T // R), NB)
-    counts, colmax, *words = tile_run_counts(
-        a_idx, run_idx, bm_words, nsteps.reshape(1), rfields, fields,
-        mask_kind=mask_kind, R=R, NB=NB, dedup=False, moments=bool(DK))
-    slot_overflow = (counts > alg.pair_cap).any()
+    with tracing.span("rays.phase1", dev):
+        a_idx, run_idx, bm_words, nsteps, num_checks = _phase1_ray_runs(
+            rfields, tiles, W, S_cap, R, -(-T // R), NB)
+    with tracing.span("rays.count", dev):
+        counts, colmax, *words = tile_run_counts(
+            a_idx, run_idx, bm_words, nsteps.reshape(1), rfields, fields,
+            mask_kind=mask_kind, R=R, NB=NB, dedup=False, moments=bool(DK))
+        slot_overflow = (counts > alg.pair_cap).any()
 
     # pairs with hits carry 1-3 hits each, far fewer than self-contact
     # pairs, so the emit grid is sized for one hit per pair
@@ -249,22 +258,25 @@ def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
     S2_cap, _ = _step_caps(RT + capacity // W2)
     E2_cap = max(4096, capacity // 4)
     D_cap = min(max(8192, capacity // 2), E2_cap * R, 1 << 17) if DK else 0
-    a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
-        a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T, R,
-        NB, decode_k=DK, D_cap=D_cap)
-    parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] if DK \
-        else []
-    gi, gj, tot, flags = tile_group_emit(
-        a_idx2, b_idx2, nsteps2.reshape(1), rfields, fields,
-        mask_kind=mask_kind, ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-        dedup=False, CAP=capacity)
+    with tracing.span("rays.regroup", dev):
+        a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
+            a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T,
+            R, NB, decode_k=DK, D_cap=D_cap)
+    with tracing.span("rays.emit", dev):
+        parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] \
+            if DK else []
+        gi, gj, tot, flags = tile_group_emit(
+            a_idx2, b_idx2, nsteps2.reshape(1), rfields, fields,
+            mask_kind=mask_kind, ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
+            dedup=False, CAP=capacity)
     cap_overflow = (nsteps > S_cap) | (nsteps2 > S2_cap) | over2 | \
         ((flags & 1) > 0)
     slot_overflow = slot_overflow | ((flags & 2) > 0)
-    gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
-    total, contacts = _finish_contacts(
-        gj, gi, total, bvh.leaves.index, narrow_fn, capacity,
-        leaf_index_b=iray_map, sort_pairs=False)
+    with tracing.span("rays.finish", dev):
+        gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
+        total, contacts = _finish_contacts(
+            gj, gi, total, bvh.leaves.index, narrow_fn, capacity,
+            leaf_index_b=iray_map, sort_pairs=False)
     overflow = ((cap_overflow | (total > capacity)).int()
                 | (slot_overflow.int() << 1))
     return total, contacts, overflow, num_checks
@@ -279,7 +291,7 @@ def traverse_rays_tiles(bvh: BVH, points, directions, *,
     (``tiles._grow_tiles`` around :func:`traverse_rays_tiles_fixed`), from
     a capacity of four hits per ray, ending in ``traverse_rays`` with
     ``LVTTraversal()`` for a scene past the slot caps' ceilings."""
-    from ..raytrace import traverse_rays  # here: raytrace imports this module
+    from ..raytrace import _traverse_rays  # raytrace imports this module
     alg = _merge_cached_alg(alg or RAY_ALG, cache)
     n_rays = int(torch.as_tensor(points).shape[1])
     if n_rays == 0 or bvh.tree.real_nodes < 1:
@@ -288,8 +300,8 @@ def traverse_rays_tiles(bvh: BVH, points, directions, *,
         lambda c, a, pc: traverse_rays_tiles_fixed(
             bvh, points, directions, c, alg=a, pair_capacity=pc,
             narrow=narrow),
-        lambda: traverse_rays(bvh, points, directions, LVTTraversal(),
-                              narrow=narrow, options=options),
+        lambda: _traverse_rays(bvh, points, directions, LVTTraversal(),
+                               narrow=narrow, options=options),
         alg, _pow2_capacity(4 * n_rays, options),
         _ray_pair_capacity(-(-n_rays // alg.tile)), cache, options,
         bvh.skips)

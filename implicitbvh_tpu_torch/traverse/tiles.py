@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..build import BVH
 from ..options import DEFAULT_OPTIONS, BVHOptions
 from ..ops.compaction import compact_flat
@@ -624,18 +625,24 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
     mask_kind = "sphere" if sphere else "box"
     finish = dict(leaf_index_b=leaves2.index, sort_pairs=not pair)
     W = alg.count_w
+    dev = tiles1.device
     if not two_phase:          # the pair-granularity fallback
-        packed, band, npairs = _phase1_tile_pairs(tiles1, sub1,
-                                                  pair_capacity, tiles2)
-        S_cap, _ = _step_caps(pair_capacity // W + T1)
-        a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W, S_cap,
-                                            T2)
+        with tracing.span("tiles.phase1", dev):
+            packed, band, npairs = _phase1_tile_pairs(tiles1, sub1,
+                                                      pair_capacity, tiles2)
+            S_cap, _ = _step_caps(pair_capacity // W + T1)
+            a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W,
+                                                S_cap, T2)
         pair_overflow = (npairs > pair_capacity) | (nsteps > S_cap)
-        gi, gj, counts, slot_overflow = tile_group_contacts(
-            a_idx, b_idx, nsteps.reshape(1), *fsets, mask_kind=mask_kind,
-            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=not pair)
-        total, contacts = _extract_contacts(
-            gi, gj, counts, bvh1.leaves.index, narrow_fn, capacity, **finish)
+        with tracing.span("tiles.emit", dev):
+            gi, gj, counts, slot_overflow = tile_group_contacts(
+                a_idx, b_idx, nsteps.reshape(1), *fsets,
+                mask_kind=mask_kind, ROW_CAP=alg.row_cap,
+                CAP_PAIR=alg.pair_cap, dedup=not pair)
+        with tracing.span("tiles.finish", dev):
+            total, contacts = _extract_contacts(
+                gi, gj, counts, bvh1.leaves.index, narrow_fn, capacity,
+                **finish)
         overflow = ((pair_overflow | (total > capacity)).int()
                     | (slot_overflow.int() << 1))
         lane = torch.arange(band.shape[0], device=band.device)
@@ -643,8 +650,9 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
                       .to(torch.float32) * float((G // N_BANDS) * G))
         return total, contacts, overflow, num_checks
     S_cap = _run_step_cap(pair_capacity // W + T1, alg)
-    si, sj, nsp, sp_overflow = _phase1_superpairs(tiles1, pair_capacity,
-                                                  tiles2)
+    with tracing.span("tiles.phase1", dev):
+        si, sj, nsp, sp_overflow = _phase1_superpairs(tiles1, pair_capacity,
+                                                      tiles2)
     total, contacts, cap_overflow, slot_overflow, num_checks = \
         _two_phase_slice(
             fsets, sub1, tiles1 if tiles2 is None else tiles2, si, sj,
@@ -689,31 +697,39 @@ def _two_phase_slice(fsets, sub, tiles_b, si, sj, nsp, alg: TileTraversal,
     G, R, NB, W2, DK = (fsets[0].shape[2], alg.run_r, alg.bands, alg.emit_w,
                         decode_k)
     T2 = fsets[-1].shape[1]
-    a_idx, run_idx, bm_words, nsteps, num_checks, run_overflow = \
-        _slice_runs(sub, tiles_b, si, sj, nsp, G, alg.count_w, S_cap, R,
-                    -(-T2 // R), NB, triangle=self_pairs)
-    counts, colmax, *words = tile_run_counts(
-        a_idx, run_idx, bm_words, nsteps.reshape(1), *fsets,
-        mask_kind=mask_kind, R=R, NB=NB, dedup=self_pairs, moments=bool(DK))
-    slot_overflow = (counts > alg.pair_cap).any()
+    dev = sub.device
+    with tracing.span("tiles.phase1", dev):
+        a_idx, run_idx, bm_words, nsteps, num_checks, run_overflow = \
+            _slice_runs(sub, tiles_b, si, sj, nsp, G, alg.count_w, S_cap, R,
+                        -(-T2 // R), NB, triangle=self_pairs)
+    with tracing.span("tiles.count", dev):
+        counts, colmax, *words = tile_run_counts(
+            a_idx, run_idx, bm_words, nsteps.reshape(1), *fsets,
+            mask_kind=mask_kind, R=R, NB=NB, dedup=self_pairs,
+            moments=bool(DK))
+        slot_overflow = (counts > alg.pair_cap).any()
 
     D_cap = min(max(8192, capacity // 8), E2_cap * R, 1 << 17) if DK else 0
-    a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
-        a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T2, R,
-        NB, decode_k=DK, D_cap=D_cap)
-    parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] if DK \
-        else []
-    gi, gj, tot, flags = tile_group_emit(
-        a_idx2, b_idx2, nsteps2.reshape(1), *fsets, mask_kind=mask_kind,
-        ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=self_pairs,
-        CAP=capacity)
+    with tracing.span("tiles.regroup", dev):
+        a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
+            a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap,
+            T2, R, NB, decode_k=DK, D_cap=D_cap)
+    with tracing.span("tiles.emit", dev):
+        parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] \
+            if DK else []
+        gi, gj, tot, flags = tile_group_emit(
+            a_idx2, b_idx2, nsteps2.reshape(1), *fsets, mask_kind=mask_kind,
+            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=self_pairs,
+            CAP=capacity)
     cap_overflow = run_overflow | (nsteps2 > S2_cap) | over2 | \
         ((flags & 1) > 0)
     slot_overflow = slot_overflow | ((flags & 2) > 0)
-    gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
-    total, contacts = _finish_contacts(
-        gi, gj, total, leaf_index, narrow_fn, capacity,
-        leaf_index_b=leaf_index_b, sort_pairs=sort_pairs)
+    with tracing.span("tiles.merge", dev):
+        gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
+    with tracing.span("tiles.finish", dev):
+        total, contacts = _finish_contacts(
+            gi, gj, total, leaf_index, narrow_fn, capacity,
+            leaf_index_b=leaf_index_b, sort_pairs=sort_pairs)
     return total, contacts, cap_overflow, slot_overflow, num_checks
 
 
@@ -757,29 +773,46 @@ def _grow_tiles(run_fixed, walk, alg, capacity: int, pair_capacity: int,
     A scene still overflowing after eight runs is too dense for the slot
     caps (one tile pair with more than ``MAX_PAIR_CAP`` contacts) and takes
     ``walk()``, the leaf-vs-tree walk, which handles any density.  The
-    empty ``cache2`` takes the index dtype of ``skips``."""
+    empty ``cache2`` takes the index dtype of ``skips``.  Each run is a
+    ``traverse.run`` span and the walk a ``traverse.walk`` span; the
+    ``grow.*`` counters count them (see ``tracing``)."""
     if cache is not None and cache.cache1.dim() == 2 \
             and cache.cache1.shape[0] > 0:
         capacity = cache.cache1.shape[0]
     if cache is not None and cache.pair_capacity > 0:
         pair_capacity = cache.pair_capacity
-    for _ in range(8):
-        total, contacts, overflow, num_checks = run_fixed(
-            capacity, alg, pair_capacity)
-        ov = int(overflow)
+    if cache is None or cache.tile_alg is None or cache.pair_capacity <= 0:
+        tracing.count("grow.cold")
+    dev = skips.device
+    for run in range(8):
+        tracing.count("grow.runs")
+        with tracing.span("traverse.run", dev) as s:
+            if s:
+                s.set(run=run, capacity=capacity,
+                      pair_capacity=pair_capacity, row_cap=alg.row_cap,
+                      pair_cap=alg.pair_cap)
+            total, contacts, overflow, num_checks = run_fixed(
+                capacity, alg, pair_capacity)
+            ov = tracing.to_int(overflow, "tiles.overflow")
+            if s:
+                s.set(overflow=ov)
         if ov == 0:
             return BVHTraversal(
-                num_contacts=int(total), cache1=contacts,
-                cache2=skips.new_zeros((0,)),
-                num_checks=int(num_checks), pair_capacity=pair_capacity,
-                tile_alg=alg, **levels)
+                num_contacts=tracing.to_int(total, "tiles.total"),
+                cache1=contacts, cache2=skips.new_zeros((0,)),
+                num_checks=tracing.to_int(num_checks, "tiles.checks"),
+                pair_capacity=pair_capacity, tile_alg=alg, **levels)
         if ov & 1:
+            tracing.count("grow.capacity")
             capacity = _grow_capacity(capacity, options.capacity_growth)
             pair_capacity = _grow_capacity(
                 pair_capacity, options.capacity_growth, 8192)
         if ov & 2:
+            tracing.count("grow.slots")
             alg = _grow_alg(alg)
-    return walk()
+    tracing.count("grow.walks")
+    with tracing.span("traverse.walk", dev):
+        return walk()
 
 
 def _pow2_capacity(need: int, options: BVHOptions) -> int:
@@ -793,7 +826,7 @@ def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
     around :func:`traverse_tiles_fixed`), ending in
     ``traverse(bvh, LVTTraversal())`` for a scene past the slot caps'
     ceilings."""
-    from .api import traverse
+    from .api import _traverse
     alg = _merge_cached_alg(alg or TileTraversal(), cache)
     if bvh.tree.real_nodes <= 1:
         return _empty_traversal(bvh, 1)
@@ -801,8 +834,8 @@ def traverse_tiles(bvh: BVH, *, alg: Optional[TileTraversal] = None,
         lambda c, a, pc: traverse_tiles_fixed(bvh, c, alg=a,
                                               pair_capacity=pc,
                                               narrow=narrow),
-        lambda: traverse(bvh, LVTTraversal(), narrow=narrow,
-                         options=options),
+        lambda: _traverse(bvh, LVTTraversal(), narrow=narrow,
+                          options=options),
         alg, _pow2_capacity(bvh.num_leaves, options),
         _pair_capacity_for(-(-bvh.num_leaves // alg.tile)), cache, options,
         bvh.skips)
@@ -817,15 +850,15 @@ def traverse_tiles_pair(bvh1: BVH, bvh2: BVH, *,
     (:func:`_grow_tiles` around :func:`traverse_tiles_pair_fixed`), from a
     capacity of twice the larger leaf count, ending in
     ``traverse(bvh1, bvh2, LVTTraversal())``."""
-    from .api import traverse
+    from .api import _traverse
     alg = _merge_cached_alg(alg or TileTraversal(), cache)
     T = -(-bvh1.num_leaves // alg.tile) + -(-bvh2.num_leaves // alg.tile)
     return _grow_tiles(
         lambda c, a, pc: traverse_tiles_pair_fixed(bvh1, bvh2, c, alg=a,
                                                    pair_capacity=pc,
                                                    narrow=narrow),
-        lambda: traverse(bvh1, bvh2, LVTTraversal(), narrow=narrow,
-                         options=options),
+        lambda: _traverse(bvh1, bvh2, LVTTraversal(), narrow=narrow,
+                          options=options),
         alg, _pow2_capacity(2 * max(bvh1.num_leaves, bvh2.num_leaves),
                             options),
         _pair_capacity_for(T // 2), cache, options, bvh1.skips,

@@ -30,8 +30,8 @@ no device-side loop, so the test ``any(inode > 0)`` that ends it is a host
 sync.  Lanes that are done stay at 0 and a step leaves them alone, so the
 body runs in blocks of ``BLOCK_STEPS`` steps with one test per block: the
 result is that of testing every step, at most ``BLOCK_STEPS - 1`` idle
-steps later.  ``stackless_walk.steps`` and ``stackless_walk.syncs`` count
-the steps run and the tests made.
+steps later.  The counters ``walk.steps`` and ``syncs.walk.end`` of
+``tracing`` count the steps run and the tests made.
 
 Per-lane shifts are int32: ``(cur + 1) << (levels - level)`` reaches
 ``2^levels``, so trees of up to 30 levels (2^29 leaves) fit.
@@ -43,6 +43,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import tracing
 from ..ops._build import cuda_device
 from ..ops.walk import MAX_LEVELS, walk_lanes
 from ..tree import ImplicitTree, isvirtual_lanes, memory_index_lanes
@@ -134,15 +135,10 @@ def stackless_walk(
     while True:
         for _ in range(BLOCK_STEPS):
             inode, counts = body(inode, counts)
-        stackless_walk.steps += BLOCK_STEPS
-        stackless_walk.syncs += 1
-        if not bool((inode > 0).any()):       # the host sync
+        tracing.count("walk.steps", BLOCK_STEPS)
+        if not tracing.to_bool((inode > 0).any(), "walk.end"):
             break
     return counts, out[:capacity]
-
-
-stackless_walk.steps = 0
-stackless_walk.syncs = 0
 
 
 def _lane_tests(target, lanes, narrow, flip: bool, self_contact: bool,
@@ -227,13 +223,17 @@ def route_walk(target, start_level: int, lanes, *, flip: bool = False,
     sync; float32 or float64 volumes).  For CPU tensors, and with
     ``narrow`` on every device: :func:`walk_lanes_plain`, the torch-op
     loop, which syncs with the host once every ``BLOCK_STEPS`` steps (no
-    kernel can call a Python callback).
+    kernel can call a Python callback).  The pass is a ``walk.count`` or
+    ``walk.write`` span.
     """
-    if narrow is None and cuda_device(target.skips):
-        return walk_lanes(target, start_level, lanes, flip=flip,
-                          dedup_ileaf=dedup_ileaf, ray_offset=ray_offset,
-                          capacity=capacity, offsets=offsets)
-    return walk_lanes_plain(target, start_level, lanes, flip=flip,
-                            dedup_ileaf=dedup_ileaf, ray_offset=ray_offset,
-                            narrow=narrow, capacity=capacity,
-                            offsets=offsets)
+    with tracing.span("walk.write" if capacity > 0 else "walk.count",
+                      target.device):
+        if narrow is None and cuda_device(target.skips):
+            return walk_lanes(target, start_level, lanes, flip=flip,
+                              dedup_ileaf=dedup_ileaf,
+                              ray_offset=ray_offset, capacity=capacity,
+                              offsets=offsets)
+        return walk_lanes_plain(target, start_level, lanes, flip=flip,
+                                dedup_ileaf=dedup_ileaf,
+                                ray_offset=ray_offset, narrow=narrow,
+                                capacity=capacity, offsets=offsets)

@@ -15,6 +15,7 @@ from typing import Tuple, Union
 
 import torch
 
+from . import tracing
 from .utils import as_tensor
 
 Coords = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -313,39 +314,42 @@ def bsphere_from_triangles(p1, p2, p3, device=None) -> BSphere:
     spheres agree bit for bit (``implicitbvh_tpu/volumes.py:163-212``).
     """
     a = as_coords(p1, device)
-    b = as_coords(p2, a[0].device)
-    c = as_coords(p3, a[0].device)
-    ab = _map3(lambda x, y: y - x, a, b)
-    ac = _map3(lambda x, y: y - x, a, c)
-    abab = dot3(ab, ab)
-    abac = dot3(ab, ac)
-    acac = dot3(ac, ac)
-    d = 2.0 * (abab * acac - abac * abac)
-    flat = d.abs() <= torch.finfo(d.dtype).eps
+    with tracing.span("spheres", a[0].device):
+        b = as_coords(p2, a[0].device)
+        c = as_coords(p3, a[0].device)
+        ab = _map3(lambda x, y: y - x, a, b)
+        ac = _map3(lambda x, y: y - x, a, c)
+        abab = dot3(ab, ab)
+        abac = dot3(ab, ac)
+        acac = dot3(ac, ac)
+        d = 2.0 * (abab * acac - abac * abac)
+        flat = d.abs() <= torch.finfo(d.dtype).eps
 
-    # collinear: centre of the three points' AABB
-    lo = _map3(lambda x, y, z: torch.minimum(torch.minimum(x, y), z), a, b, c)
-    up = _map3(lambda x, y, z: torch.maximum(torch.maximum(x, y), z), a, b, c)
-    c_lin = _map3(lambda l, u: 0.5 * (l + u), lo, up)
-    r_lin = dist3(c_lin, up)
+        # collinear: centre of the three points' AABB
+        lo = _map3(lambda x, y, z: torch.minimum(torch.minimum(x, y), z),
+                   a, b, c)
+        up = _map3(lambda x, y, z: torch.maximum(torch.maximum(x, y), z),
+                   a, b, c)
+        c_lin = _map3(lambda l, u: 0.5 * (l + u), lo, up)
+        r_lin = dist3(c_lin, up)
 
-    d_safe = torch.where(flat, torch.ones_like(d), d)
-    s = (abab * acac - acac * abac) / d_safe
-    t = (acac * abab - abab * abac) / d_safe
+        d_safe = torch.where(flat, torch.ones_like(d), d)
+        s = (abab * acac - acac * abac) / d_safe
+        t = (acac * abab - abab * abac) / d_safe
 
-    c_s0 = _map3(lambda x, y: 0.5 * (x + y), a, c)
-    c_t0 = _map3(lambda x, y: 0.5 * (x + y), a, b)
-    c_st = _map3(lambda x, y: 0.5 * (x + y), b, c)
-    c_in = tuple(a[k] + s * ab[k] + t * ac[k] for k in range(3))
+        c_s0 = _map3(lambda x, y: 0.5 * (x + y), a, c)
+        c_t0 = _map3(lambda x, y: 0.5 * (x + y), a, b)
+        c_st = _map3(lambda x, y: 0.5 * (x + y), b, c)
+        c_in = tuple(a[k] + s * ab[k] + t * ac[k] for k in range(3))
 
-    cases = (  # later entries take precedence, as in the JAX selection
-        (s + t >= 1.0, c_st, dist3(c_st, b)),
-        (t <= 0.0, c_t0, dist3(c_t0, a)),
-        (s <= 0.0, c_s0, dist3(c_s0, a)),
-        (flat, c_lin, r_lin),
-    )
-    cen, rad = c_in, dist3(c_in, a)
-    for cond, cc, rc in cases:
-        cen = _map3(lambda x, y: torch.where(cond, y, x), cen, cc)
-        rad = torch.where(cond, rc, rad)
-    return BSphere(cen, rad)
+        cases = (  # later entries take precedence, as in the JAX selection
+            (s + t >= 1.0, c_st, dist3(c_st, b)),
+            (t <= 0.0, c_t0, dist3(c_t0, a)),
+            (s <= 0.0, c_s0, dist3(c_s0, a)),
+            (flat, c_lin, r_lin),
+        )
+        cen, rad = c_in, dist3(c_in, a)
+        for cond, cc, rc in cases:
+            cen = _map3(lambda x, y: torch.where(cond, y, x), cen, cc)
+            rad = torch.where(cond, rc, rad)
+        return BSphere(cen, rad)

@@ -148,10 +148,10 @@ def cuda():
 
 def _card_equals_plain(dev, args, triangle):
     args = tuple(t.to(dev) for t in args)
-    before = ops.subtile_band_bits.launches
+    before = ops.launch_count(ops.subtile_band_bits)
     got = ops.subtile_band_bits(*args, triangle=triangle)
     torch.cuda.synchronize()
-    assert ops.subtile_band_bits.launches == before + 1
+    assert ops.launch_count(ops.subtile_band_bits) == before + 1
     want = ops.subtile_band_bits_plain(*args, triangle=triangle)
     return torch.equal(got, want)
 

@@ -26,6 +26,7 @@ except ImportError:
     jb = None
 
 import implicitbvh_tpu_torch as tb
+from implicitbvh_tpu_torch import tracing
 from implicitbvh_tpu_torch import utils as tutils
 from implicitbvh_tpu_torch.traverse import bfs as tbfs
 
@@ -165,11 +166,11 @@ def test_bfs_overflow_growth_and_cache():
     jbvh = jb.build(jb.BSphere(jnp.asarray(xs), jnp.asarray(rs)), jb.BBox,
                     options=opts_j)
     tbvh = to_port(jbvh)
-    tbfs._run_with_growth.tries = 0
+    tracing.reset("bfs.runs")
     j = jb.traverse(jbvh, jb.BFSTraversal(), options=opts_j)
     t = tb.traverse(tbvh, tb.BFSTraversal(), options=opts_t)
     assert same_result(j, t) == brute_force_self(xs, rs)
-    assert tbfs._run_with_growth.tries > 1
+    assert tracing.counter("bfs.runs") > 1
     again = tb.traverse(tbvh, tb.BFSTraversal(), options=opts_t, cache=t)
     assert torch.equal(again.cache1, t.cache1)
 

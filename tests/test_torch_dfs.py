@@ -24,6 +24,7 @@ except ImportError:
     jb = None
 
 import implicitbvh_tpu_torch as tb
+from implicitbvh_tpu_torch import tracing
 from implicitbvh_tpu_torch.traverse import dfs as tdfs
 
 from test_torch_pair import to_port
@@ -81,12 +82,13 @@ def test_dfs_matches_jax_and_brute_force(n):
 def test_dfs_start_level_sweep():
     c, rs, jbvh, tbvh = scene(90, seed=1, r=0.8)
     want = brute(c, rs)
-    tdfs.dfs_single_fixed.steps = tdfs.dfs_single_fixed.syncs = 0
+    tracing.reset("dfs.")
+    tracing.reset("syncs.dfs.end")
     for sl in range(1, tbvh.tree.levels + 1):
         assert same_dfs(jbvh, tbvh, start_level=sl) == want, sl
-    assert tdfs.dfs_single_fixed.syncs > 0
-    assert tdfs.dfs_single_fixed.steps == \
-        tdfs.dfs_single_fixed.syncs * tdfs.BLOCK_STEPS
+    assert tracing.counter("syncs.dfs.end") > 0
+    assert tracing.counter("dfs.steps") == \
+        tracing.counter("syncs.dfs.end") * tdfs.BLOCK_STEPS
 
 
 def test_dfs_narrow_matches_jax_and_lvt():

@@ -260,6 +260,6 @@ def test_float64_self_on_card_equals_cpu():
             alg = tb.TileTraversal(**params)
             ops.reset_launch_counts()
             got = summary(tb.traverse_tiles_fixed(gpu, CAP, alg=alg))
-            assert ops.subtile_band_bits.launches == 1, route
+            assert ops.launch_count(ops.subtile_band_bits) == 1, route
             assert got == summary(tb.traverse_tiles_fixed(cpu, CAP,
                                                           alg=alg)), route

@@ -232,7 +232,8 @@ def test_float64_pair_and_rays_on_card_equal_cpu():
             alg = tb.TileTraversal(**ROUTES[route])
             ops.reset_launch_counts()
             got = summary(tb.traverse_tiles_pair_fixed(*gpu, CAP, alg=alg))
-            assert ops.subtile_band_bits.launches == 1, (name, route)
+            assert ops.launch_count(ops.subtile_band_bits) == 1, \
+                (name, route)
             assert got == summary(tb.traverse_tiles_pair_fixed(
                 *cpu, CAP, alg=alg)), (name, route)
     p, d = ray_scene()
@@ -243,8 +244,9 @@ def test_float64_pair_and_rays_on_card_equal_cpu():
             ops.reset_launch_counts()
             t, c, o, n = tb.traverse_rays_tiles_fixed(gpu, p, d, CAP,
                                                       alg=alg)
-            launched = (ops.tile_run_counts.launches if route == "two_phase"
-                        else ops.tile_group_contacts.launches)
+            launched = ops.launch_count(
+                ops.tile_run_counts if route == "two_phase"
+                else ops.tile_group_contacts)
             assert launched == 1, (leaves.__name__, route)
             tc, cc, oc, nc = tb.traverse_rays_tiles_fixed(cpu, p, d, CAP,
                                                           alg=alg)

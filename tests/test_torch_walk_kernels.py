@@ -42,6 +42,7 @@ except ImportError:
 import implicitbvh_tpu_torch as tb
 from implicitbvh_tpu_torch import ops
 from implicitbvh_tpu_torch import raytrace as tray
+from implicitbvh_tpu_torch import tracing
 from implicitbvh_tpu_torch.ops import walk as owalk
 from implicitbvh_tpu_torch.traverse import dfs as tdfs
 from implicitbvh_tpu_torch.traverse import walk as twalk
@@ -563,7 +564,7 @@ def check_walk(jcount, jwrite, target, start_level, lanes, capacity,
     assert np.array_equal(tc2.numpy(), jc)
     assert np.array_equal(tout.numpy(), jout)
     assert tout.dtype == target.skips.dtype
-    assert ops.walk_lanes.launches == 0
+    assert ops.launch_count(ops.walk_lanes) == 0
     return int(jc.sum())
 
 
@@ -733,7 +734,7 @@ def check_dfs(jbvh, tbvh, sl, cap):
     assert np.array_equal(tc2.numpy(), jc)
     assert np.array_equal(tout.numpy(), jout)
     assert tout.dtype == tbvh.skips.dtype
-    assert ops.dfs_lanes.launches == 0
+    assert ops.launch_count(ops.dfs_lanes) == 0
     return int(jc.sum())
 
 
@@ -962,21 +963,24 @@ def test_cpu_and_narrow_take_the_plain_loops():
     plain loops)."""
     tbvh = to_port(jax_bvh(80, 11, scale=2.0))
     ops.reset_launch_counts()
-    twalk.stackless_walk.steps = 0
-    tdfs.dfs_single_fixed.steps = 0
+    tracing.reset("walk.steps")
+    tracing.reset("dfs.steps")
     t1 = tb.traverse_lvt_single_fixed(tbvh, 256)
     t2 = tb.traverse_lvt_single_fixed(tbvh, 256,
                                       narrow=lambda a, b: a.index > 0)
     t3 = tb.traverse(tbvh, tb.DFSTraversal())
-    assert twalk.stackless_walk.steps > 0 and tdfs.dfs_single_fixed.steps > 0
+    assert tracing.counter("walk.steps") > 0 and \
+        tracing.counter("dfs.steps") > 0
     assert int(t1[0]) == int(t2[0]) == t3.num_contacts > 0
     assert torch.equal(t1[1], t2[1])
-    assert ops.walk_lanes.launches == ops.dfs_lanes.launches == 0
+    assert ops.launch_count(ops.walk_lanes) == \
+        ops.launch_count(ops.dfs_lanes) == 0
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.walk_lanes(tbvh, 1, tbvh.leaves)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.dfs_lanes(tbvh, 3)
-    assert ops.walk_lanes.launches == ops.dfs_lanes.launches == 0
+    assert ops.launch_count(ops.walk_lanes) == \
+        ops.launch_count(ops.dfs_lanes) == 0
     with pytest.raises(TypeError, match="convert"):
         owalk.pack_walk(to_port(jax_bvh(20, 1, node_kind="sphere")), 1,
                         to_port(jax_bvh(20, 2, box=True)).leaves)
@@ -1157,7 +1161,7 @@ def test_captured_pair_walk_replays_on_new_inputs():
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         out = run()
-    assert ops.walk_lanes.launches == 2
+    assert ops.launch_count(ops.walk_lanes) == 2
     g.replay()
     torch.cuda.synchronize()
     assert int(out[0]) == int(want[0]) > 0 and torch.equal(out[1], want[1])
@@ -1264,7 +1268,7 @@ def test_captured_dfs_replays_on_new_geometry():
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         out = run()
-    assert ops.dfs_lanes.launches == 2
+    assert ops.launch_count(ops.dfs_lanes) == 2
     g.replay()
     torch.cuda.synchronize()
     assert int(out[0]) == int(want[0]) > 0 and torch.equal(out[1], want[1])

@@ -29,6 +29,7 @@ except ImportError:
 
 import implicitbvh_tpu_torch as tb
 from implicitbvh_tpu_torch import raytrace as tray
+from implicitbvh_tpu_torch import tracing
 from implicitbvh_tpu_torch import utils as tutils
 from implicitbvh_tpu_torch.traverse import lvt as tlvt
 from implicitbvh_tpu_torch.traverse import walk as twalk
@@ -332,10 +333,11 @@ def test_walk_counts_its_steps_and_syncs():
     it and keeps the total."""
     xs, rs = spheres(80, 11, 2.0)
     bvh = tb.build(tb.BSphere(xs, rs, device="cpu"))
-    twalk.stackless_walk.steps = twalk.stackless_walk.syncs = 0
+    tracing.reset("walk.")
+    tracing.reset("syncs.walk.")
     total, out = tb.traverse_lvt_single_fixed(bvh, 16)
-    assert twalk.stackless_walk.steps == \
-        twalk.stackless_walk.syncs * twalk.BLOCK_STEPS > 0
+    assert tracing.counter("walk.steps") == \
+        tracing.counter("syncs.walk.end") * twalk.BLOCK_STEPS > 0
     full = tb.traverse(bvh)
     assert int(total) == full.num_contacts > 16
     assert torch.equal(out, full.cache1[:16])
