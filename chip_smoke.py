@@ -226,6 +226,14 @@ held against their plain versions at the path's inputs only.
     captured as phase 22's cells and replayed on new inputs; and B1-B4 and
     B6 timed in float64 beside their float32 rows in turns, each with its
     bound (float64 operations over the H100's 34 TFLOP/s).
+25. R1 (``ray_band_bits``, the ray query's phase 1) at the ``dragon-rays``
+    cell's shape (100,000 rays against the 249,882-triangle scene's leaf
+    tiles at tile 128: RT 782, T 1,953), in float32 and float64: kernel ==
+    plain, its eager and device times, its bound (the slab tests times
+    ``R1_INSTR_PER_TEST`` over the non-FMA issue rate, half the FLOP rate)
+    and the plain version's time.  R1 is also held against its plain
+    version wherever the ray kernels are (phases 6, 8 and 24), and phase 7
+    requires one launch of it per ray query.
 
 Each phase group prints its seconds and the script's total so far.
 W1's and W2's rows (``walk_lanes[...]``, ``dfs_lanes[self]``) are their
@@ -274,6 +282,10 @@ FP64_OPS_PER_S = 34e12      # H100 SXM, float64 outside the tensor cores
 # not counted): ray_box 6 sub + 6 mul + 12 compares; ray_sphere 3 sub +
 # 6 (qb) + 7 (qc) + 4 (disc) + 3 compares
 FLOPS_PER_TEST = {"sphere": 11, "box": 6, "ray_box": 24, "ray_sphere": 23}
+# R1's instructions per slab test (csrc/ray_band_bits.cu's note): the 24
+# operations above, the 10 selects of the select min/max and the fold into
+# the band flag
+R1_INSTR_PER_TEST = 35
 
 N_RAY_TRIS = 1 << 18       # triangles of the full-width ray scene
 N_RAYS = 100_000           # its rays
@@ -440,9 +452,17 @@ def main() -> int:
             ops.dfs_lanes, dfs.dfs_lanes_plain,
             "implicitbvh_tpu_torch/csrc/dfs.cu",
             "implicitbvh_tpu/traverse/dfs.py:139"),
+        # R1, the ray query's phase 1: the JAX package computes it in jnp
+        # (no Pallas kernel), so it replaces none
+        "ray_band_bits": (
+            ops.ray_band_bits, ops.ray_band_bits_plain,
+            "implicitbvh_tpu_torch/csrc/ray_band_bits.cu",
+            "none: jnp in implicitbvh_tpu/traverse/ray_tiles.py:85"),
     }
     walk_kernels = ("walk_lanes", "dfs_lanes")
-    tile_kernels = [n for n in kernels if n not in walk_kernels]
+    # the kernels of self-contact's paths, each with a row at its inputs
+    tile_kernels = [n for n in kernels
+                    if n not in walk_kernels + ("ray_band_bits",)]
     # the CUDA kernels of each wrapper, by name in the profiler
     device_kernel = {"subtile_band_bits": ("band_bits_kernel",),
                      "tile_run_counts": ("run_counts_kernel",),
@@ -456,7 +476,8 @@ def main() -> int:
                      # W1's stages and scan, W2's rounds, sums, places
                      # and write run: every kernel of each
                      "walk_lanes": ("walk_",),
-                     "dfs_lanes": ("dfs_",)}
+                     "dfs_lanes": ("dfs_",),
+                     "ray_band_bits": ("ray_band_bits_kernel",)}
     two_phase_kernels = ("subtile_band_bits", "tile_run_counts",
                          "tile_group_emit")
     fallback_kernels = ("subtile_band_bits", "compact_flat",
@@ -800,8 +821,8 @@ def main() -> int:
         return seen
 
     def check_ray_kernels(seen, label):
-        check_kernels(seen, label,
-                      ray_two_phase_kernels + ray_fallback_kernels)
+        check_kernels(seen, label, ray_two_phase_kernels +
+                      ray_fallback_kernels + ("ray_band_bits",))
         args, kw = seen["tile_group_contacts"]
         check_kernel("tile_pair_contacts", ray_pair_list(args), kw, label)
 
@@ -848,7 +869,8 @@ def main() -> int:
         f"TPU v5e), overflow {int(r_overflow)}, num_checks "
         f"{float(r_checks):.0f}, launches {launches_ray}")
     if min(launches_ray[n] for n in ray_two_phase_kernels) < 1 or \
-            launches_ray["tile_group_contacts"]:
+            launches_ray["tile_group_contacts"] or \
+            launches_ray["ray_band_bits"] != 1:
         raise AssertionError(f"ray launches are wrong: {launches_ray}")
     keys_ray = hit_keys(r_total, r_contacts, r_overflow, N_RAY_TRIS, N_RAYS,
                         "ray two-phase")
@@ -3354,6 +3376,66 @@ def main() -> int:
     del spheres64, bvh64f, tris64, seen_f64, seen_f64_fb, b6_in64, inputs64
     log(f"time: phase 24 (the tile engine in float64) "
         f"{time.perf_counter() - t24:.1f} s; the script "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # 25. R1 at the dragon-rays cell's shape: 100,000 rays against the
+    # leaf tiles of the 249,882-triangle scene at the ray defaults (tile
+    # 128, 4 bands: RT 782, T 1,953), in float32 and float64: kernel ==
+    # plain, the eager and device times beside the operations bound and the
+    # plain version's time
+    t25 = time.perf_counter()
+    from implicitbvh_tpu_torch.raytrace import _prep_rays
+    d_bvh = ib.build(ib.bsphere_from_triangles(
+        *to_dev(synth_triangles(N_DRAGON, seed=0), dev)))
+    dp, dd = _prep_rays(*bench_rays(N_DRAGON), torch.float32, dev)
+    G, NB = ray_tiles.RAY_ALG.tile, ray_tiles.RAY_ALG.bands
+    rf32, RT = ray_tiles._ray_tile_fields(dp, dd,
+                                          ray_tiles._sort_rays(dp, dd), G)
+    tl32 = tiles._tiled_fields(d_bvh, G)[2]
+    T = tl32.shape[1]
+    n_tests = RT * G * T
+    for f64 in (False, True):
+        dt = torch.float64 if f64 else torch.float32
+        rf, tl = rf32.to(dt), tl32.to(dt)
+        name = "ray_band_bits"
+        wrapper, plain, source, replaces = kernels[name]
+        row = row_of(name, {}, f64=f64)
+        ops.reset_launch_counts()
+        got = wrapper(rf, tl, NB)
+        n_launches = launch_counts()[name]
+        want = plain(rf, tl, NB)
+        torch.cuda.synchronize()
+        if n_launches != 1 or not torch.equal(got, want):
+            raise AssertionError(f"{row} at the dragon-rays shape differs "
+                                 "from its plain version")
+        errs.setdefault(row, 0)
+        k_ms = time_ms(lambda: wrapper(rf, tl, NB))
+        d_ms = device_ms(lambda: wrapper(rf, tl, NB), device_kernel[name],
+                         per_record=True)
+        p_ms = time_ms(lambda: plain(rf, tl, NB), reps=3)
+        bytes_ms = nbytes(rf, tl, got) / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_tests * R1_INSTR_PER_TEST / (
+            (FP64_OPS_PER_S if f64 else FP32_OPS_PER_S) / 2) * 1e3
+        b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
+            (ops_ms, "operations")
+        log(f"time: {row} at the dragon-rays shape (RT {RT}, G {G}, NB "
+            f"{NB}, T {T}: {n_tests} slab tests, {int((got > 0).sum())} "
+            f"live words): kernel {k_ms:.4f} ms, device {fmt_ms(d_ms)}, "
+            f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; bytes "
+            f"{bytes_ms:.6f}, operations {ops_ms:.6f}: "
+            f"{R1_INSTR_PER_TEST} instructions a test at the non-FMA "
+            f"issue rate); kernel == plain (exact) [{card}]")
+        rows.append({"name": row, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": n_launches,
+                     "max_abs_err": errs[row], "ms": k_ms,
+                     "device_ms": d_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_bytes_ms": bytes_ms,
+                     "bound_operations_ms": ops_ms, "library_ms": None})
+        del rf, tl, got, want
+    del d_bvh, dp, dd, rf32, tl32
+    log(f"time: phase 25 (R1 at the dragon-rays shape) "
+        f"{time.perf_counter() - t25:.1f} s; the script "
         f"{time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,13 +1,25 @@
-"""Phase-1b sub-band bits: the CUDA kernel and its plain PyTorch version.
+"""Sub-band bits: the CUDA kernels and their plain PyTorch versions.
 
-Replaces ``implicitbvh_tpu/ops/subtile.py:subtile_band_bits``
-(``_bits_kernel``).  For every live supertile pair ``p`` the result holds,
-for a-tile ``si[p]*32+i`` and b-tile ``sj[p]*32+j``, an NB-bit word whose
-bit ``r`` is set iff sub-band ``r`` of the a-tile overlaps the b-tile's
-AABB.  The count kernel skips the dead bands, and ``bits > 0`` is the pair
-filter.  The bounds are float32 or float64, both of one type.  The kernel
-(``csrc/band_bits.cu``, a template on the value type) is bound by bytes on
-the H100: a persistent grid of warps, one slot per warp, 16-byte stores.
+- B1 ``subtile_band_bits``, phase 1b of self-contact and of the two-tree
+  query.  Replaces ``implicitbvh_tpu/ops/subtile.py:subtile_band_bits``
+  (``_bits_kernel``).  For every live supertile pair ``p`` the result
+  holds, for a-tile ``si[p]*32+i`` and b-tile ``sj[p]*32+j``, an NB-bit
+  word whose bit ``r`` is set iff sub-band ``r`` of the a-tile overlaps the
+  b-tile's AABB.  The count kernel skips the dead bands, and ``bits > 0``
+  is the pair filter.  The kernel (``csrc/band_bits.cu``) is bound by bytes
+  on the H100: a persistent grid of warps, one slot per warp, 16-byte
+  stores.
+- R1 ``ray_band_bits``, phase 1 of the tile ray query: for every (ray tile,
+  leaf tile) an NB-bit word whose bit ``r`` is set iff a ray of sub-band
+  ``r`` of the ray tile hits the leaf tile's AABB.  The JAX package has no
+  Pallas kernel for it (``implicitbvh_tpu/traverse/ray_tiles.py:
+  _ray_tile_hits`` is jnp, fused by XLA).  The kernel
+  (``csrc/ray_band_bits.cu``) is bound by the instruction rate: one block a
+  ray tile and chunk of leaf tiles, the rays in shared memory, a thread's
+  leaf tiles in registers, no reduction across threads.
+
+The values are float32 or float64, both inputs of one type, and the kernels
+are templates on it.
 """
 
 from __future__ import annotations
@@ -15,9 +27,11 @@ from __future__ import annotations
 import torch
 
 from .. import tracing
+from ..volumes import _ray_box_test, _reciprocal
 from . import _build
 
 SS = 32  # tiles per supertile
+_HIT_CHUNK = 1 << 24  # ray x leaf-tile slab tests per batch of the plain R1
 
 
 def subtile_band_bits_plain(sub, tiles, si, sj, nsp, *, triangle=True):
@@ -88,3 +102,64 @@ def subtile_band_bits(sub, tiles, si, sj, nsp, *, triangle=True):
     tracing.count("launches.subtile_band_bits")
     return out
 
+
+def ray_band_bits_plain(rfields, tiles, NB: int = 4):
+    """Plain PyTorch version of :func:`ray_band_bits`, batched over ray
+    tiles, ``_HIT_CHUNK`` slab tests at a time."""
+    _, RT, G = rfields.shape
+    T = tiles.shape[1]
+    BH = G // NB
+    lo, up = tiles[:3, None, :], tiles[3:, None, :]            # (3, 1, T)
+    wts = (1 << torch.arange(NB, device=rfields.device)).view(1, NB, 1)
+    step = max(1, _HIT_CHUNK // (G * T))
+    out = []
+    for r0 in range(0, RT, step):
+        blk = rfields[:, r0:r0 + step].reshape(6, -1, 1)       # (6, C*G, 1)
+        hit = _ray_box_test(blk[:3], _reciprocal(blk[3:]), lo, up)
+        hb = hit.view(-1, NB, BH, T).any(2)                    # (C, NB, T)
+        out.append((hb * wts).sum(1, dtype=torch.int32))
+    return torch.cat(out)
+
+
+def ray_band_bits(rfields, tiles, NB: int = 4):
+    """(RT, T) int32 band bits of phase 1 of the tile ray query.
+
+    - ``rfields``: (6, RT, G) float32 or float64 ray tiles, rows ``p0, p1,
+      p2, d0, d1, d2``, NaN-padded past the last ray; G a multiple of 32 up
+      to 1024.
+    - ``tiles``: (6, T) leaf-tile bounds ``lo0, lo1, lo2, up0, up1, up2``,
+      same dtype and device.
+    - ``NB``: sub-bands of a ray tile, 4, 8 or 16 (G/NB rays each).
+
+    Bit ``r`` of entry ``(rt, t)`` is set iff a ray of sub-band ``r`` of ray
+    tile ``rt`` hits the AABB of leaf tile ``t`` (the slab test of
+    ``volumes.isintersection``).  A CUDA tensor takes one launch of
+    ``csrc/ray_band_bits.cu``, a CPU tensor the plain version; both give
+    the same bits.
+    """
+    dev = rfields.device
+    value_bits = _build.check_values(rfields, "rfields")
+    if rfields.dim() != 3 or rfields.shape[0] != 6:
+        raise ValueError(f"rfields must be (6, RT, G), got "
+                         f"{tuple(rfields.shape)}")
+    RT, G = rfields.shape[1], rfields.shape[2]
+    if G % 32 or not 0 < G <= 1024:
+        raise ValueError(f"tile size {G} must be a multiple of 32, <= 1024")
+    if NB not in (4, 8, 16):
+        raise ValueError(f"NB must be 4, 8 or 16, got {NB}")
+    _build.check_values(tiles, "tiles", like=rfields, device=dev)
+    if tiles.dim() != 2 or tiles.shape[0] != 6:
+        raise ValueError(f"tiles must be (6, T), got {tuple(tiles.shape)}")
+    if not _build.cuda_device(rfields):
+        return ray_band_bits_plain(rfields, tiles, NB)
+    T = tiles.shape[1]
+    P, I = _build.P, _build.I
+    fn = _build.kernel_fn("ray_band_bits", "ray_band_bits_launch",
+                          [P] * 3 + [I] * 5 + [P])
+    out = torch.empty((RT, T), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.launch(fn, "ray_band_bits", rfields.data_ptr(),
+                      tiles.data_ptr(), out.data_ptr(), RT, G, T, NB,
+                      value_bits)
+    tracing.count("launches.ray_band_bits")
+    return out

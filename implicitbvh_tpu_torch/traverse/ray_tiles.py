@@ -6,9 +6,9 @@ tile self-contact (``traverse/tiles.py``):
 1. Rays are sorted for coherence by (direction bin, Morton code of the
    origin), direction bin = sign octant x dominant axis, and grouped into
    ray tiles of G.
-2. Phase 1 (torch ops): a slab test of every ray against every leaf tile's
-   AABB, any-reduced over each ray tile's NB sub-bands of G/NB rays, gives
-   the (ray tile, leaf tile) band bits.
+2. Phase 1 (R1, ``ops/subtile.py:ray_band_bits``): a slab test of every
+   ray against every leaf tile's AABB, any-reduced over each ray tile's NB
+   sub-bands of G/NB rays, gives the (ray tile, leaf tile) band bits.
 3. One of two routes, chosen as in the JAX package:
 
    - **two-phase** (``pair_cap <= 128`` and ``capacity % 1024 == 0``): the
@@ -42,9 +42,9 @@ from .. import tracing
 from ..build import BVH
 from ..morton import DefaultMortonAlgorithm, morton_encode
 from ..options import DEFAULT_OPTIONS, BVHOptions
+from ..ops.subtile import ray_band_bits
 from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
                                 tile_group_emit, tile_run_counts)
-from ..volumes import _ray_box_test, _reciprocal
 from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal, _extract_contacts,
                     _finish_contacts, _grow_tiles, _merge_cached_alg,
                     _merge_streams, _moment_decode, _popcount,
@@ -56,7 +56,6 @@ from .types import BVHTraversal, LVTTraversal
 # rays want a deeper per-ray slot cap than self-contact: one ray can pass
 # through several leaves of one tile (a row is a ray)
 RAY_ALG = TileTraversal(row_cap=8, emit_w=8, decode_k=8)
-_HIT_CHUNK = 1 << 24     # ray x leaf-tile slab tests per batch of phase 1
 
 
 def _ray_pair_capacity(RT: int) -> int:
@@ -91,21 +90,9 @@ def _ray_tile_fields(p, d, perm, G: int):
 def _ray_tile_hits(rfields, tiles, NB: int = 4):
     """(RT, T) int32 band bits: bit r is set iff a ray of sub-band r (G/NB
     rays) of ray tile rt hits the AABB of leaf tile t (``tiles``: (6, T)
-    bounds).  Batched over ray tiles, ``_HIT_CHUNK`` slab tests at a
-    time."""
-    _, RT, G = rfields.shape
-    T = tiles.shape[1]
-    BH = G // NB
-    lo, up = tiles[:3, None, :], tiles[3:, None, :]            # (3, 1, T)
-    wts = (1 << torch.arange(NB, device=rfields.device)).view(1, NB, 1)
-    step = max(1, _HIT_CHUNK // (G * T))
-    out = []
-    for r0 in range(0, RT, step):
-        blk = rfields[:, r0:r0 + step].reshape(6, -1, 1)       # (6, C*G, 1)
-        hit = _ray_box_test(blk[:3], _reciprocal(blk[3:]), lo, up)
-        hb = hit.view(-1, NB, BH, T).any(2)                    # (C, NB, T)
-        out.append((hb * wts).sum(1, dtype=torch.int32))
-    return torch.cat(out)
+    bounds).  One launch of R1 on the card, its plain version on the
+    CPU."""
+    return ray_band_bits(rfields, tiles, NB)
 
 
 def _group_positions(live, W: int):

@@ -1,5 +1,5 @@
-"""The ray variants of the tile-contact kernels, and the moment decode,
-against the JAX package.
+"""The ray variants of the tile-contact kernels, the moment decode and
+phase 1's band bits (R1), against the JAX package.
 
 Each scene runs through the port's tile ray traversal on the CPU while a
 recorder keeps the kernel wrappers' arguments (there they take their plain
@@ -11,6 +11,10 @@ arrays, go to the JAX package's Pallas kernels in interpret mode and to its
 identically rounded float32 values and every output is an integer (counts,
 column maxima and the whole word plane; the emitted stream as a sorted set
 with its total and flags; the slot lanes below each pair's count).
+
+R1 (``ops.ray_band_bits``) has no Pallas counterpart: its plain version is
+held against the JAX package's ``_ray_tile_hits`` (jnp) on the port's own
+ray and leaf tiles, in float32 and float64.
 
 ``gpu``-marked tests hold each CUDA variant against its plain version on the
 same inputs; they skip without a card.
@@ -31,6 +35,8 @@ try:  # the reference; a machine that runs only the port has no JAX
         tile_pair_contacts as jax_pair_contacts
     from implicitbvh_tpu.ops.tile_contact import \
         tile_run_counts as jax_counts
+    from implicitbvh_tpu.traverse.ray_tiles import \
+        _ray_tile_hits as jax_ray_tile_hits
     from implicitbvh_tpu.traverse.tiles import \
         _moment_decode as jax_moment_decode
 except ImportError:
@@ -440,3 +446,215 @@ def test_ray_kernels_match_plain_on_card(scene):
     want = ttiles._moment_decode(*args)
     assert emitted(got[0].cpu(), got[1].cpu(), got[2]) == \
         emitted(want[0], want[1], want[2])
+
+
+# ---------------------------------------------------------------------------
+# R1: phase 1's band bits
+
+
+def ray_tiles_of(bvh, p, d, G, dtype=torch.float32):
+    """Phase 1's inputs for ``bvh`` and the rays ``p``/``d``: the sorted,
+    NaN-padded (6, RT, G) ray tiles and the (6, T) leaf-tile bounds."""
+    tp, td = (tuple(torch.from_numpy(x[k]).to(dtype) for k in range(3))
+              for x in (p, d))
+    rf, _ = tray._ray_tile_fields(tp, td, tray._sort_rays(tp, td), G)
+    return rf, ttiles._tiled_fields(bvh, G)[2].to(dtype)
+
+
+@pytest.mark.parametrize("G,NB,dtype", [
+    (32, 4, torch.float32), (32, 16, torch.float32),
+    (128, 8, torch.float32), (64, 4, torch.float64)])
+@pytest.mark.parametrize("kind", ["sphere", "box", "sparse"])
+def test_ray_band_bits_plain_matches_jax(kind, G, NB, dtype):
+    """R1's plain version, and the wrapper on CPU tensors, against the JAX
+    package's ``_ray_tile_hits`` on the same tiles, bit for bit: the ray
+    scenes above (zero direction components; their 160 rays leave a NaN
+    tail at tiles 64 and 128) and a sparser one (4,000 spheres in a cube of
+    side 60, 333 near-parallel rays: words with some bands dead, and below
+    tile 128 words of 0)."""
+    if jnp is None:
+        pytest.skip("needs JAX and the implicitbvh_tpu package")
+    if kind == "sparse":
+        rng = np.random.default_rng(23)
+        xs = (rng.random((4000, 3)) * 60).astype(np.float32)
+        rs = (rng.random(4000) * 0.3 + 0.05).astype(np.float32)
+        bvh = tb.build(tb.BSphere(xs, rs, device=CPU))
+        p = np.stack([rng.random(333) * 60, rng.random(333) * 60,
+                      np.full(333, -1.0)]).astype(np.float32)
+        d = np.stack([(rng.random(333) - 0.5) * 0.2,
+                      (rng.random(333) - 0.5) * 0.2,
+                      np.ones(333)]).astype(np.float32)
+    else:
+        bvh, p, d = ray_scene(kind)
+    rf, tl = ray_tiles_of(bvh, p, d, G, dtype)
+    assert bool(torch.isnan(rf).any()) == bool(p.shape[1] % G)
+    want = np.asarray(jax_ray_tile_hits(
+        tuple(j(f) for f in rf), tuple(j(tl[k]) for k in range(3)),
+        tuple(j(tl[k]) for k in range(3, 6)), NB))
+    got = ops.ray_band_bits_plain(rf, tl, NB)
+    assert got.dtype == torch.int32 and np.array_equal(want, got.numpy())
+    assert torch.equal(ops.ray_band_bits(rf, tl, NB), got)
+    assert torch.equal(tray._ray_tile_hits(rf, tl, NB), got)
+    assert bool(got.any()) and int(got.max()) < 1 << NB
+    if kind == "sparse":
+        assert bool((got == 0).any()) or G == 128
+        assert bool(((got > 0) & (got < (1 << NB) - 1)).any())
+
+
+def edge_band_inputs(G, dtype, device="cpu", seed=0):
+    """R1's edge cases at tile size ``G``: 3 G + 17 rays (a NaN tail in the
+    last ray tile); ray tile 0 far outside, pointing away (no hit); zero
+    direction components; origins on the lattice planes that carry a third
+    of the boxes' faces, with a zero component along that axis (0 * inf =
+    NaN in the slab test).  Returns ``(rfields, tiles)``."""
+    rng = np.random.default_rng(seed)
+    T = 300
+    lo = rng.random((3, T)) * 8
+    up = lo + rng.random((3, T)) * 1.5 + 0.05
+    lo[:, :T // 3] = np.floor(lo[:, :T // 3])
+    up[:, :T // 3] = lo[:, :T // 3] + 1
+    n = 3 * G + 17
+    p = rng.random((3, n)) * 9 - 0.5
+    d = rng.random((3, n)) - 0.5
+    p[:, :G], d[:, :G] = -100.0, -1.0
+    for k in range(3):
+        sel = rng.random(n) < 0.15
+        sel[:G] = False
+        d[k, sel] = 0.0
+        face = rng.random(n) < 0.15
+        face[:G] = False
+        p[k, face] = np.round(p[k, face])
+        d[k, face] = 0.0
+    tp, td = (tuple(torch.tensor(x[k], dtype=dtype, device=device)
+                    for k in range(3)) for x in (p, d))
+    rf, _ = tray._ray_tile_fields(tp, td, torch.arange(n, device=device), G)
+    tiles = torch.tensor(np.concatenate([lo, up]), dtype=dtype, device=device)
+    return rf, tiles
+
+
+def test_ray_band_bits_edge_inputs_match_jax():
+    """The edge inputs of the card test, at tile 32 and 96 and in both
+    precisions, against the JAX package; ray tile 0 hits nothing."""
+    if jnp is None:
+        pytest.skip("needs JAX and the implicitbvh_tpu package")
+    for G, NB, dtype in ((32, 16, torch.float32), (96, 4, torch.float64)):
+        rf, tl = edge_band_inputs(G, dtype)
+        want = np.asarray(jax_ray_tile_hits(
+            tuple(j(f) for f in rf), tuple(j(tl[k]) for k in range(3)),
+            tuple(j(tl[k]) for k in range(3, 6)), NB))
+        got = ops.ray_band_bits(rf, tl, NB)
+        assert np.array_equal(want, got.numpy())
+        assert not bool(got[0].any()) and bool(got[1:].any())
+
+
+def test_ray_band_bits_wrapper_checks():
+    """What R1's wrapper refuses: other dtypes, mixed dtypes, other shapes,
+    tile sizes and band counts, mixed and unsupported devices."""
+    rf = torch.zeros((6, 2, 32))
+    tl = torch.zeros((6, 5))
+    assert tuple(ops.ray_band_bits(rf, tl).shape) == (2, 5)
+    with pytest.raises(TypeError, match="float32 or torch.float64"):
+        ops.ray_band_bits(rf.half(), tl.half())
+    with pytest.raises(TypeError, match="float32 or torch.float64"):
+        ops.ray_band_bits(rf.int(), tl)
+    with pytest.raises(TypeError, match="tiles must be torch.float32"):
+        ops.ray_band_bits(rf, tl.double())
+    with pytest.raises(ValueError, match="rfields must be"):
+        ops.ray_band_bits(torch.zeros((5, 2, 32)), tl)
+    with pytest.raises(ValueError, match="rfields must be"):
+        ops.ray_band_bits(torch.zeros((6, 64)), tl)
+    with pytest.raises(ValueError, match="tiles must be"):
+        ops.ray_band_bits(rf, torch.zeros((6, 5, 1)))
+    with pytest.raises(ValueError, match="tile size 48"):
+        ops.ray_band_bits(torch.zeros((6, 2, 48)), tl)
+    with pytest.raises(ValueError, match="tile size 2048"):
+        ops.ray_band_bits(torch.zeros((6, 1, 2048)), tl)
+    with pytest.raises(ValueError, match="NB must be"):
+        ops.ray_band_bits(rf, tl, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ray_band_bits(torch.zeros((6, 32, 2)).transpose(1, 2), tl)
+    with pytest.raises(ValueError, match="tiles is on meta"):
+        ops.ray_band_bits(rf, tl.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.ray_band_bits(rf.to("meta"), tl.to("meta"))
+
+
+def test_ray_band_bits_plain_path_launches_nothing():
+    """On CPU tensors a tile ray query takes R1's plain version on both
+    routes: the launch count stays 0."""
+    bvh, p, d = ray_scene("box")
+    for params in (TWO_PHASE, FALLBACK):
+        ops.reset_launch_counts()
+        out = tb.traverse_rays_tiles_fixed(bvh, p, d, 1024,
+                                           alg=tb.TileTraversal(**params))
+        assert int(out[0]) > 0
+        assert ops.launch_count(ops.ray_band_bits) == 0
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", range(32, 1025, 32))
+@pytest.mark.parametrize("NB", [4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ray_band_bits_matches_plain_on_card(dtype, NB, G):
+    """R1 on the card equals its plain version on the card, bit for bit, at
+    every tile size the ray route takes: a NaN tail, zero direction
+    components, rays in face planes, a ray tile that hits nothing."""
+    _card()
+    rf, tl = edge_band_inputs(G, dtype, device="cuda", seed=G + NB)
+    got = ops.ray_band_bits(rf, tl, NB)
+    want = ops.ray_band_bits_plain(rf, tl, NB)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert not bool(got[0].any()) and bool(got[1:].any())
+
+
+def dragon_scene(n_tri=249_882, n_rays=100_000):
+    """The 249,882-triangle reference scene as ``chip_smoke.py`` makes it
+    (random triangles at unit density, seed 0) and its 100,000 rays."""
+    rng = np.random.default_rng(0)
+    scale = float(n_tri) ** (1.0 / 3.0)
+    c = (rng.random((n_tri, 3)) * scale).astype(np.float32)
+    e1 = (rng.random((n_tri, 3)) - 0.5).astype(np.float32) * 0.4
+    e2 = (rng.random((n_tri, 3)) - 0.5).astype(np.float32) * 0.4
+    rng = np.random.default_rng(1)
+    p = (rng.random((3, n_rays)) * scale).astype(np.float32)
+    d = (rng.random((3, n_rays)) - 0.5).astype(np.float32)
+    return (c, c + e1, c + e2), p, d
+
+
+@pytest.mark.gpu
+def test_ray_query_on_card_launches_r1_once():
+    """One ``traverse_rays_tiles_fixed`` on the card launches R1 exactly
+    once on each route, and the 100,000-ray bundle on the 249,882-triangle
+    scene gives the same hits, checks and overflow as with R1's plain
+    version in its place."""
+    _card()
+    tris, p, d = dragon_scene()
+    vol = tb.bsphere_from_triangles(*(
+        tuple(torch.as_tensor(np.ascontiguousarray(v[:, k]), device="cuda")
+              for k in range(3)) for v in tris))
+    bvh = tb.build(vol)
+    rp, rd = torch.as_tensor(p, device="cuda"), torch.as_tensor(d, device="cuda")
+
+    def query(alg=None):
+        ops.reset_launch_counts()
+        t, c, o, n = tb.traverse_rays_tiles_fixed(bvh, rp, rd, 1 << 18,
+                                                  alg=alg)
+        hits = {tuple(r) for r in c[:int(t)].tolist()}
+        return (int(t), int(o), float(n), len(hits)), hits, \
+            ops.launch_count(ops.ray_band_bits)
+
+    for alg in (None, tb.TileTraversal(row_cap=32, pair_cap=512)):
+        got, got_hits, launches = query(alg)
+        assert launches == 1 and got[1] == 0 and got[0] == got[3] > 0
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tray, "ray_band_bits", ops.ray_band_bits_plain)
+            want, want_hits, plain_launches = query(alg)
+        assert plain_launches == 0
+        assert got == want and got_hits == want_hits
+    assert got[0] == 196_130      # the JAX package's total on a TPU v5e
