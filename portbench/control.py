@@ -9,8 +9,9 @@ reference must pass the limit on every seed.
 
 For each seed it makes the cell's inputs as a run does (the same draws),
 takes the steps a run would check, and prints one JSON line per step: the
-control's ``pairs_off`` beside the limit.  The benchmark's own runs do not
-run it.
+control's ``pairs_off`` beside the limit.  The reference and the rows of
+its keys come from the inputs' answer kind (``check.kind``).  The
+benchmark's own runs do not run it.
 """
 
 import argparse
@@ -22,16 +23,6 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
-def rows_of(keys, inputs):
-    """1-based rows of the reference's keys (the inverse of
-    ``check.keys_of``)."""
-    import torch
-    from portbench import check
-    n = check.n_leaves(inputs) if inputs["kind"] == "self" else \
-        inputs["p"].shape[1]
-    return torch.stack([keys // n + 1, keys % n + 1], 1)
-
-
 def control(cell, seed: int, dtype, device, steps=None) -> list:
     """``[(step, pairs_off, limit)]`` of the control at ``cell``'s sizes."""
     import torch
@@ -41,10 +32,12 @@ def control(cell, seed: int, dtype, device, steps=None) -> list:
     out = []
     for i in steps or harness.check_steps(seed, cell.traffic):
         inputs = drv.inputs(i)
-        want = check.reference_keys(inputs, torch.float32)
-        got = check.reference_keys(inputs, dtype)
-        off = check.pairs_off(got.shape[0], rows_of(got, inputs), inputs,
-                              want)
+        kind = check.kind(inputs["kind"], cell.here)
+        want = kind.reference_keys(inputs, torch.float32)
+        got = kind.reference_keys(inputs, dtype)
+        off = check.keys_off(got.shape[0],
+                             *kind.keys_of(kind.rows_of(got, inputs), inputs),
+                             want)
         out.append((i, off, check.LIMITS["pairs_off"]))
     return out
 

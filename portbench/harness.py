@@ -9,7 +9,10 @@ gives it:
   configuration and a traffic mix; its ``configs`` entry names the
   configuration's file;
 - ``traffic/<traffic>.json`` holds the mix's parameters, among them
-  ``step``, the step driver ``steps/<step>.py`` that runs it;
+  ``step``, the step driver ``steps/<step>.py`` that runs it, which
+  declares the configurations it runs (``check_config``);
+- ``reference/<kind>.py`` is the plain reference of the answer kind that
+  a step's inputs name (``check.kind``);
 - ``metrics/<metric>.py`` reads one per-layer metric from a traced run.
 """
 
@@ -60,21 +63,22 @@ def load_file(path: Path, package: str):
     return module
 
 
-# the values of a configuration's keys that the drivers run: any other
-# value is refused, never run as one of these
-SUPPORTED = {"scene": ("closed surface", "particles"), "leaf": ("BSphere",),
-             "node": ("BBox",), "dtype": ("float32",)}
+# the keys of a configuration whose values a step driver declares in its
+# ``Step.runs``: any other value is refused, never run as one it declares
+CONFIG_KEYS = ("scene", "leaf", "node", "dtype")
 
 
-def check_config(config: dict):
+def check_config(config: dict, driver):
     """Raise ``ValueError`` where a configuration states a value of
-    ``SUPPORTED``'s keys that the drivers do not run."""
-    for key, values in SUPPORTED.items():
+    ``CONFIG_KEYS`` that ``driver`` (a step driver's ``Step``) does not
+    declare in its ``runs``."""
+    for key in CONFIG_KEYS:
+        values = driver.runs.get(key, ())
         if config.get(key) not in values:
             raise ValueError(
                 f"configuration {config.get('name')!r}: {key} = "
-                f"{config.get(key)!r}; the benchmark runs only "
-                f"{', '.join(map(repr, values))}")
+                f"{config.get(key)!r}; its step driver {driver.__module__} "
+                f"runs only {', '.join(map(repr, values)) or 'none'}")
 
 
 def load_spec(root: Path = ROOT) -> dict:
@@ -97,9 +101,9 @@ def load_cell(name: str, root: Path = ROOT, here: Path = HERE) -> Cell:
     w = cells[name]
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
     config = json.loads((root / conf["file"]).read_text())
-    check_config(config)
     traffic = json.loads((here / "traffic" / f"{w['traffic']}.json")
                          .read_text())
+    check_config(config, step_driver(traffic, here))
     return Cell(name, w["chips"], config, traffic,
                 for_cell(spec["end_to_end"], name),
                 for_cell(spec["per_layer"], name), here)
@@ -165,6 +169,9 @@ class Trace:
       (``WAITS``) within them;
     - ``layer_ms``: per-step CUDA-event times by layer over the steps
       before the profiled stretch;
+    - ``window_steps``, ``window_s``, ``latencies``: the measured window
+      before the profiled stretch: its steps, its wall seconds and each
+      step's host seconds;
     - ``totals``, ``checks``: each step's count and leaf tests (None where
       the query gives none);
     - ``recorded``: the last call of each recorded kernel wrapper,
@@ -177,6 +184,9 @@ class Trace:
     host_step_ns: list = field(default_factory=list)
     sync_ns: int = 0
     layer_ms: dict = field(default_factory=dict)
+    window_steps: int = 0
+    window_s: float = 0.0
+    latencies: list = field(default_factory=list)
     totals: list = field(default_factory=list)
     checks: list = field(default_factory=list)
     recorded: dict = field(default_factory=dict)
@@ -252,6 +262,16 @@ def profile_events(prof) -> list:
     from torch.autograd import DeviceType
     return [(e.name(), e.device_type() == DeviceType.CUDA, e.start_ns(),
              e.duration_ns()) for e in prof.profiler.kineto_results.events()]
+
+
+def device_busy_ns(prof, window_ns: tuple) -> int:
+    """Nanoseconds within ``window_ns`` in which a device operation of the
+    finished ``torch.profiler.profile`` ran."""
+    from torch.autograd import DeviceType
+    ops = [("", e.start_ns(), e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    return Trace(device_ops=ops, window_ns=window_ns).busy_ns()
 
 
 def read_profile(prof, tr: Trace):
@@ -362,13 +382,35 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             step.keep(i)
         return s1
 
-    w0 = time.perf_counter()
     setup_s = time.time() - t0
+    # an end-to-end metric of the device's timeline is read over the whole
+    # window, which then runs under a profiler of the device alone
+    timeline = cuda and not trace and any(
+        m["source"] == "device_trace" for m in cell.end_to_end)
+    if timeline:
+        from torch.profiler import ProfilerActivity, profile
+        wprof = profile(activities=[ProfilerActivity.CUDA])
+        wprof.__enter__()
+        torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    w_ns = time.time_ns()
     deadline = w0 + seconds
     i, end = 0, w0
     while end < deadline or i < min_steps:
         end = one(i)
         i += 1
+    w_steps, w_end = i, end
+    busy_ns = None
+    if timeline:
+        torch.cuda.synchronize()
+        e_ns = time.time_ns()
+        p0 = time.perf_counter()
+        wprof.__exit__(None, None, None)
+        busy_ns = device_busy_ns(wprof, (w_ns, e_ns))
+        del wprof
+        log(f"device busy {busy_ns / 1e9:.4f} s of the window's "
+            f"{(e_ns - w_ns) / 1e9:.4f} s (the profile read in "
+            f"{time.perf_counter() - p0:.1f} s)")
     if trace:
         # the profiled stretch comes last: the profiler's device tracing
         # slows the kernels it records, which the layers' events would read
@@ -397,6 +439,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         v = {"setup_s": setup_s,
              "step_ms": 1e3 * window_s / steps,
              "step_p95_ms": 1e3 * percentile(lat, 95),
+             "step_device_ms": None if busy_ns is None
+             else busy_ns / 1e6 / steps,
              "peak_mem_gib": peak / 2 ** 30}.get(m["name"])
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
@@ -412,6 +456,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         read_profile(prof, tr)
         tr.steps = n_prof
         tr.layer_ms = layers
+        tr.window_steps, tr.window_s = w_steps, w_end - w0
+        tr.latencies = lat[:w_steps]
         tr.totals, tr.checks = totals, checks
         metrics = {}
         for m in cell.per_layer:
@@ -435,8 +481,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     for j in want:
         total, rows = step.answer(j)
         inputs = step.inputs(j)
-        off = check.pairs_off(total, rows, inputs,
-                              check.reference_keys(inputs))
+        kind = check.kind(inputs["kind"], cell.here)
+        off = check.keys_off(total, *kind.keys_of(rows, inputs),
+                             kind.reference_keys(inputs, torch.float32))
         log(f"  step {j}: count {total}, pairs_off {off}")
         worst = max(worst, off)
     compared = {"pairs_off": (worst, check.LIMITS["pairs_off"])}

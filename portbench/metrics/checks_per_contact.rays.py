@@ -1,0 +1,5 @@
+"""``checks_per_contact`` (see its reader) in the cells whose end-to-end time is the
+device's busy time a step, ``step_device_ms``: a metric moves one
+end-to-end metric, which these cells report in place of ``step_ms``."""
+
+from portbench.metrics.checks_per_contact import read  # noqa: F401

@@ -1,0 +1,5 @@
+"""``device_idle_pct`` (see its reader) in the cells whose end-to-end time is the
+device's busy time a step, ``step_device_ms``: a metric moves one
+end-to-end metric, which these cells report in place of ``step_ms``."""
+
+from portbench.metrics.device_idle_pct import read  # noqa: F401

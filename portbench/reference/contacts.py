@@ -69,6 +69,21 @@ def spheres(tris: torch.Tensor, dtype=torch.float32):
     return torch.stack(centre), radius
 
 
+def leaves(inputs: dict, dtype=torch.float32):
+    """``(centres (3, n), radii (n,))`` of one step's leaves in ``dtype``:
+    the spheres of its triangles ``tris``, or its particles ``x``, ``r``."""
+    if "tris" in inputs:
+        return spheres(inputs["tris"], dtype)
+    return inputs["x"].to(dtype), inputs["r"].to(dtype)
+
+
+def n_leaves(inputs: dict) -> int:
+    """The number of leaves (triangles or particles) of one step's
+    inputs."""
+    return inputs["tris"].shape[2] if "tris" in inputs else \
+        inputs["r"].shape[0]
+
+
 def self_contact_keys(x: torch.Tensor, r: torch.Tensor,
                       block: int = 1 << 18) -> torch.Tensor:
     """Sorted int64 keys ``i * n + j`` (0-based, ``i < j``) of every pair of

@@ -20,11 +20,38 @@ from __future__ import annotations
 import torch
 
 from .. import scene
-from .self_graph import spheres
+from . import self_graph
+
+
+def half_rays(fn):
+    """Half of the batch left out: the first half of the rays only (a
+    fault the benchmark's tests plant)."""
+    def call(bvh, p, d, *args, **kw):
+        h = p.shape[1] // 2
+        return fn(bvh, p[:, :h], d[:, :h], *args, **kw)
+    return call
 
 
 class Step:
     layers = ("traverse",)
+    # the configurations it runs (``harness.check_config``): those of the
+    # captured steps, on the same scenes
+    runs = self_graph.Step.runs
+
+    # for the benchmark's own tests (see ``self_graph.Step``)
+    @staticmethod
+    def small(config: dict, traffic: dict, leaves: int):
+        self_graph.small_config(config, leaves)
+        traffic["rays"], traffic["bundles"] = 200, 4
+        traffic["warmup"] = min(traffic["warmup"], 4)
+
+    @staticmethod
+    def answer_call(config: dict, traffic: dict) -> str:
+        return "traverse_rays"
+
+    @staticmethod
+    def half_batch(config: dict, traffic: dict):
+        return "traverse_rays", half_rays
 
     def __init__(self, config, traffic, seed, device, trace):
         self.config, self.traffic, self.trace = config, traffic, trace
@@ -44,7 +71,7 @@ class Step:
     def setup(self):
         import implicitbvh_tpu_torch as ibt
         self.ibt = ibt
-        self.bvh = ibt.build(spheres(ibt, self.leaves),
+        self.bvh = ibt.build(self_graph.spheres(ibt, self.leaves),
                              getattr(ibt, self.config["node"]))
         for i in range(self.traffic["warmup"]):
             self.run(i)

@@ -71,8 +71,61 @@ def spheres(ibt, leaves: dict):
     return ibt.BSphere(tuple(leaves["x"]), leaves["r"])
 
 
+def small_config(config: dict, leaves: int):
+    """Cut a configuration of ``scene.configured`` to ``leaves`` leaves, and
+    its capacities with them (in place; for the benchmark's own tests)."""
+    key = "triangles" if "triangles" in config else "particles"
+    config[key] = leaves
+    config["capacity"] = 1024 * -(-16 * leaves // 1024)
+    if "pair_capacity" in config:
+        config["pair_capacity"] = 8192
+
+
+def half_spheres(fn):
+    """Half of the batch left out: spheres of the first half of the
+    triangles only (a fault the benchmark's tests plant)."""
+    def call(p1, p2, p3, *args, **kw):
+        h = p1[0].shape[0] // 2
+        return fn(*(tuple(c[:h] for c in p) for p in (p1, p2, p3)),
+                  *args, **kw)
+    return call
+
+
+def half_particles(fn):
+    """Half of the batch left out: the first half of the particles only
+    (a fault the benchmark's tests plant)."""
+    def call(xs, r, *args, **kw):
+        h = r.shape[0] // 2
+        return fn(tuple(c[:h] for c in xs), r[:h], *args, **kw)
+    return call
+
+
 class Step:
     layers = ("build", "traverse")
+    # the configurations it runs (``harness.check_config``)
+    runs = {"scene": ("closed surface", "particles"), "leaf": ("BSphere",),
+            "node": ("BBox",), "dtype": ("float32",)}
+    # the program's call whose answer a step returns, by ``traffic["query"]``
+    calls = {"tiles_fixed": "traverse_tiles_fixed",
+             "lvt_fixed": "traverse_lvt_single_fixed"}
+
+    # what the benchmark's own tests take from a driver: a cell cut to a
+    # size the CPU runs (``small``), the name of the program's call whose
+    # answer a step returns (``answer_call``), and the call that takes the
+    # batch with a wrapper that leaves out half of it (``half_batch``)
+    @staticmethod
+    def small(config: dict, traffic: dict, leaves: int):
+        small_config(config, leaves)
+
+    @classmethod
+    def answer_call(cls, config: dict, traffic: dict) -> str:
+        return cls.calls[traffic["query"]]
+
+    @staticmethod
+    def half_batch(config: dict, traffic: dict):
+        if config["scene"] == "closed surface":
+            return "bsphere_from_triangles", half_spheres
+        return "BSphere", half_particles
 
     def __init__(self, config, traffic, seed, device, trace):
         self.config, self.traffic, self.trace = config, traffic, trace

@@ -1,23 +1,17 @@
 """Cells cut to a size the CPU tests can run: the same configurations,
-traffic and code, fewer leaves and rays, a short window."""
+traffic and code, fewer leaves and rays (as each cell's step driver cuts
+them, ``Step.small``), a short profiled stretch."""
 
 from portbench import harness
 
 N_LEAVES = 1500
-N_RAYS = 200
 
 
 def small_cell(name: str, root=harness.ROOT, here=harness.HERE,
                leaves: int = N_LEAVES):
     cell = harness.load_cell(name, root, here)
-    key = "triangles" if "triangles" in cell.config else "particles"
-    cell.config[key] = leaves
-    cell.config["capacity"] = 1024 * -(-16 * leaves // 1024)
-    if "pair_capacity" in cell.config:
-        cell.config["pair_capacity"] = 8192
-    if "rays" in cell.traffic:
-        cell.traffic["rays"], cell.traffic["bundles"] = N_RAYS, 4
-        cell.traffic["warmup"] = min(cell.traffic["warmup"], 4)
+    harness.step_driver(cell.traffic, here).small(cell.config, cell.traffic,
+                                                  leaves)
     cell.traffic["trace"]["profile_steps"] = 2
     return cell
 

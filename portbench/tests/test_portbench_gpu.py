@@ -19,6 +19,9 @@ def test_cell_on_the_card(name, trace, cuda):
                                      time.time(), check_at=[3], min_steps=8)
     assert res["correct"] and compared["pairs_off"][0] == 0
     assert res["device"]["platform"] == "gpu"
+    if not trace:   # every end-to-end metric, the device's timeline's too
+        assert set(res["metrics"]) == {m["name"] for m in cell.end_to_end}
+        assert all(v["value"] > 0 for v in res["metrics"].values())
     if trace:
         assert 0 < res["device"]["busy_s"] <= res["device"]["window_s"]
         for m in res["metrics"]:

@@ -11,6 +11,8 @@ from pathlib import Path
 import pytest
 
 from portbench import harness
+from portbench.tests.cell_checks import (FAULTS, check_control, check_fault,
+                                         check_run, run)
 from portbench.tests.small import small_cell
 
 SPEC = harness.load_spec()
@@ -71,6 +73,9 @@ def test_metrics_and_bounds():
                           "moves", "workloads"}
         assert m["moves"] in e2e and line_ok(m["layer"])
         assert set(m.get("workloads", cells)) <= cells
+        # every cell that reads it reports the metric it moves
+        for w in m.get("workloads", cells):
+            assert e2e[m["moves"]] in harness.for_cell(SPEC["end_to_end"], w)
         if m["name"].endswith("_roofline"):
             assert m["unit"] == "%"
     for w in cells:   # setup_s, another end-to-end metric, a per-layer one
@@ -151,3 +156,82 @@ def test_a_configuration_the_drivers_do_not_run_is_refused(tmp_path, key,
             if w["config"] == "particles-1m"][0]
     with pytest.raises(ValueError, match=key):
         harness.load_cell(cell, tmp_path)
+
+
+PAIR_CELL = Path(__file__).resolve().parent / "pair_cell"
+
+
+def with_the_pair_cell(tmp_path):
+    """A copy of the benchmark in ``tmp_path`` with a two-body cell,
+    ``tiny-pair``, added as files: the answer kind ``reference/pair.py``,
+    the driver ``steps/pair_tiles.py``, a configuration, a traffic mix and
+    their entries in ``BENCHMARK.json``.  Returns the copy's folder and the
+    bytes of every file it had before."""
+    here = tmp_path / "portbench"
+    shutil.copytree(harness.HERE, here,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in here.rglob("*") if p.is_file()}
+    for name, to in (("pair.py", "reference"), ("pair_tiles.py", "steps"),
+                     ("tiny-pair.json", "configs"),
+                     ("pair-tiles.json", "traffic")):
+        shutil.copyfile(PAIR_CELL / name, here / to / name)
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append({"name": "tiny-pair", "source": "a test",
+                            "file": "portbench/configs/tiny-pair.json",
+                            "reduced": [], "why": "a test"})
+    spec["workloads"].append({"name": "tiny-pair", "config": "tiny-pair",
+                              "traffic": "pair-tiles", "chips": 1,
+                              "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    return here, before
+
+
+def test_a_new_query_kind_needs_only_new_files(tmp_path, monkeypatch):
+    """A two-tree cell added as files only (its answer kind, its driver,
+    its configuration and mix), cut by ``small_cell`` as any cell is, runs
+    correct and meets what every cell is held to (``cell_checks``): each
+    fault, a row dropped and the control come out not correct; no file
+    that was there is edited."""
+    import implicitbvh_tpu_torch as ibt
+    from portbench import check
+    here, before = with_the_pair_cell(tmp_path)
+    cell = small_cell("tiny-pair", tmp_path, here)
+    drv = harness.step_driver(cell.traffic, here)(
+        cell.config, cell.traffic, 2 ** 31 + 11, "cpu", False)
+    for i in (1, 3):    # the check is not empty
+        inputs = drv.inputs(i)
+        assert check.kind(inputs["kind"], here).reference_keys(
+            inputs).shape[0] > 0
+    for trace in (False, True):
+        check_run(cell, trace)
+    check_control(cell)
+    for fault in FAULTS:
+        with monkeypatch.context() as m:
+            check_fault(small_cell("tiny-pair", tmp_path, here), fault, m)
+    query = ibt.traverse_tiles_pair_fixed
+
+    def dropped(*args, **kw):
+        total, rows, overflow, checks = query(*args, **kw)
+        return total - 1, rows, overflow, checks
+    monkeypatch.setattr(ibt, "traverse_tiles_pair_fixed", dropped)
+    res, compared = run(small_cell("tiny-pair", tmp_path, here))
+    assert not res["correct"] and compared["pairs_off"][0] > 0
+    after = {p: p.read_bytes() for p in before}
+    assert after == before
+
+
+def test_a_value_is_checked_against_its_own_driver(tmp_path):
+    """A configuration's ``scene`` is checked against the driver its cell's
+    traffic names: refused where that driver does not declare it, though
+    another driver does."""
+    here, _ = with_the_pair_cell(tmp_path)
+    harness.load_cell("tiny-pair", tmp_path, here)
+    for cell, path, scene in (
+            ("particles1m-step-graph", "configs/particles-1m.json",
+             "particle pair"),
+            ("tiny-pair", "configs/tiny-pair.json", "particles")):
+        conf = json.loads((here / path).read_text())
+        conf["scene"] = scene
+        (here / path).write_text(json.dumps(conf))
+        with pytest.raises(ValueError, match="scene"):
+            harness.load_cell(cell, tmp_path, here)

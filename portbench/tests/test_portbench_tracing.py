@@ -9,8 +9,8 @@ import pytest
 import implicitbvh_tpu_torch as ibt
 from implicitbvh_tpu_torch import tracing
 from portbench import harness, spans
+from portbench.tests.cell_checks import run
 from portbench.tests.small import small_cell
-from portbench.tests.test_portbench_run import run
 
 SPAN_METRICS = ("traverse_span_ms", "phase1_ms", "program_idle_ms")
 COUNTER_METRICS = ("syncs_per_step", "tile_runs_per_step",
@@ -35,6 +35,9 @@ def test_the_readers_on_a_small_traced_cell():
         2.0 + m["tile_runs_per_step"])
     assert 0 < m["phase1_ms"] < m["traverse_span_ms"]
     assert m["walk_fallback_pct"] == 0.0
+    # the window before the profiled stretch, on the host's clock
+    assert res["attempted"] > 8
+    assert 0 < m["step_wall_ms"] and 0 < m["step_wall_p95_ms"]
 
 
 def timeline(monkeypatch, spans_made):
@@ -101,3 +104,46 @@ def test_a_program_without_spans_reads_nothing(monkeypatch):
                        device_ops=[("k", 10, 10)])
     for m in SPAN_METRICS + COUNTER_METRICS:
         assert harness.metric_reader(m)(tr) is None, m
+
+
+def test_the_window_readers_by_hand():
+    tr = harness.Trace(window_steps=4, window_s=0.02,
+                       latencies=[0.004, 0.005, 0.005, 0.006])
+    assert harness.metric_reader("step_wall_ms")(tr) == pytest.approx(5.0)
+    assert harness.metric_reader("step_wall_p95_ms")(tr) == pytest.approx(
+        1e3 * harness.percentile(tr.latencies, 95))
+    for m in ("step_wall_ms", "step_wall_p95_ms"):
+        assert harness.metric_reader(m)(harness.Trace()) is None
+
+
+class Event:
+    def __init__(self, on_device, start, duration):
+        from torch.autograd import DeviceType
+        self.kind = DeviceType.CUDA if on_device else DeviceType.CPU
+        self.start, self.duration = start, duration
+
+    def device_type(self):
+        return self.kind
+
+    def start_ns(self):
+        return self.start
+
+    def duration_ns(self):
+        return self.duration
+
+
+def test_the_window_busy_time_counts_device_operations_inside_it():
+    """``step_device_ms``'s reading: the union of the device operations'
+    intervals inside the window; host records and time outside it do not
+    count."""
+    class Prof:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return [Event(True, 0, 20),      # 10-20 inside
+                            Event(True, 30, 10),     # 30-40
+                            Event(True, 35, 15),     # overlaps: 40-50
+                            Event(False, 50, 40),    # a host record
+                            Event(True, 95, 20)]     # 95-100 inside
+    assert harness.device_busy_ns(Prof, (10, 100)) == 10 + 20 + 5
