@@ -25,12 +25,24 @@ into a buffer of ``MAX_SPANS``; past that the oldest are dropped and
 counted.  A graph replay runs no Python, so a captured step reports its
 stages only if it was captured with tracing on.
 
+The tile engine's stages (``traverse/tiles.py``) are the spans
+``tiles.fields`` (each body's leaves tiled into field sets and tile
+bounds; attribute ``bodies``, 1 or 2), ``tiles.phase1``, ``tiles.count``,
+``tiles.regroup``, ``tiles.emit``, ``tiles.merge`` and ``tiles.finish``;
+on the two-tree route each stage after ``tiles.fields`` carries
+``pair=True``.
+
 **Counters** are plain integers and always on; each is an addition at a
 place where the host already works.  They accumulate over the process
 until :func:`reset`:
 
 - ``calls.build``, ``calls.traverse``: public calls (``traverse_rays``
-  counts as a traverse);
+  counts as a traverse); ``calls.tiles_pair``: two-tree calls of the tile
+  engine, ``traverse_tiles_pair_fixed`` or ``traverse_tiles_pair`` (once
+  a call, whatever its growth runs);
+- ``tiles.grid_cells``: supertile-grid cells tested by the tile engine's
+  phase 1, ``S1 * S2`` for two trees and the triangle ``S (S + 1) / 2``
+  for one (known on the host);
 - ``grow.runs``: fixed-capacity runs of the tile engine's growth loop;
   ``grow.capacity``, ``grow.slots``: runs that overflowed a buffer
   (overflow bit 0) or a slot cap (bit 1); ``grow.walks``: calls that ended

@@ -234,6 +234,8 @@ def _phase1_superpairs(tiles, P_cap: int, tiles_b=None, sp_round: int = 16):
     lo1, up1, S1 = _supertile_bounds(tiles)
     lo2, up2, S2 = (lo1, up1, S1) if tiles_b is None \
         else _supertile_bounds(tiles_b)
+    tracing.count("tiles.grid_cells",
+                  S1 * (S1 + 1) // 2 if tiles_b is None else S1 * S2)
     ov = torch.ones((S1, S2), dtype=torch.bool, device=tiles.device)
     for k in range(3):
         ov &= (up1[k][:, None] >= lo2[k][None, :]) & \
@@ -608,8 +610,11 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
         raise NotImplementedError(
             "tile pair traversal needs leaves of one kind in both BVHs; "
             "LVTTraversal() takes mixed kinds")
-    fsets, sphere, tiles1, sub1, T1, tiles2, T2 = _tiled_sets(bvh1, bvh2, G,
-                                                              NB)
+    dev = bvh1.device
+    tag = {"pair": True} if pair else {}    # the stage spans' attributes
+    with tracing.span("tiles.fields", dev, bodies=1 + pair):
+        fsets, sphere, tiles1, sub1, T1, tiles2, T2 = _tiled_sets(
+            bvh1, bvh2, G, NB)
     leaves2 = bvh2.leaves if pair else bvh1.leaves
     if max(T1, T2) >= 1 << 16:
         raise ValueError("tile count exceeds 65536; raise the tile size")
@@ -625,21 +630,20 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
     mask_kind = "sphere" if sphere else "box"
     finish = dict(leaf_index_b=leaves2.index, sort_pairs=not pair)
     W = alg.count_w
-    dev = tiles1.device
     if not two_phase:          # the pair-granularity fallback
-        with tracing.span("tiles.phase1", dev):
+        with tracing.span("tiles.phase1", dev, **tag):
             packed, band, npairs = _phase1_tile_pairs(tiles1, sub1,
                                                       pair_capacity, tiles2)
             S_cap, _ = _step_caps(pair_capacity // W + T1)
             a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W,
                                                 S_cap, T2)
         pair_overflow = (npairs > pair_capacity) | (nsteps > S_cap)
-        with tracing.span("tiles.emit", dev):
+        with tracing.span("tiles.emit", dev, **tag):
             gi, gj, counts, slot_overflow = tile_group_contacts(
                 a_idx, b_idx, nsteps.reshape(1), *fsets,
                 mask_kind=mask_kind, ROW_CAP=alg.row_cap,
                 CAP_PAIR=alg.pair_cap, dedup=not pair)
-        with tracing.span("tiles.finish", dev):
+        with tracing.span("tiles.finish", dev, **tag):
             total, contacts = _extract_contacts(
                 gi, gj, counts, bvh1.leaves.index, narrow_fn, capacity,
                 **finish)
@@ -650,7 +654,7 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
                       .to(torch.float32) * float((G // N_BANDS) * G))
         return total, contacts, overflow, num_checks
     S_cap = _run_step_cap(pair_capacity // W + T1, alg)
-    with tracing.span("tiles.phase1", dev):
+    with tracing.span("tiles.phase1", dev, **tag):
         si, sj, nsp, sp_overflow = _phase1_superpairs(tiles1, pair_capacity,
                                                       tiles2)
     total, contacts, cap_overflow, slot_overflow, num_checks = \
@@ -698,11 +702,12 @@ def _two_phase_slice(fsets, sub, tiles_b, si, sj, nsp, alg: TileTraversal,
                         decode_k)
     T2 = fsets[-1].shape[1]
     dev = sub.device
-    with tracing.span("tiles.phase1", dev):
+    tag = {} if self_pairs else {"pair": True}  # the stage spans' attributes
+    with tracing.span("tiles.phase1", dev, **tag):
         a_idx, run_idx, bm_words, nsteps, num_checks, run_overflow = \
             _slice_runs(sub, tiles_b, si, sj, nsp, G, alg.count_w, S_cap, R,
                         -(-T2 // R), NB, triangle=self_pairs)
-    with tracing.span("tiles.count", dev):
+    with tracing.span("tiles.count", dev, **tag):
         counts, colmax, *words = tile_run_counts(
             a_idx, run_idx, bm_words, nsteps.reshape(1), *fsets,
             mask_kind=mask_kind, R=R, NB=NB, dedup=self_pairs,
@@ -710,11 +715,11 @@ def _two_phase_slice(fsets, sub, tiles_b, si, sj, nsp, alg: TileTraversal,
         slot_overflow = (counts > alg.pair_cap).any()
 
     D_cap = min(max(8192, capacity // 8), E2_cap * R, 1 << 17) if DK else 0
-    with tracing.span("tiles.regroup", dev):
+    with tracing.span("tiles.regroup", dev, **tag):
         a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
             a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap,
             T2, R, NB, decode_k=DK, D_cap=D_cap)
-    with tracing.span("tiles.emit", dev):
+    with tracing.span("tiles.emit", dev, **tag):
         parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] \
             if DK else []
         gi, gj, tot, flags = tile_group_emit(
@@ -724,9 +729,9 @@ def _two_phase_slice(fsets, sub, tiles_b, si, sj, nsp, alg: TileTraversal,
     cap_overflow = run_overflow | (nsteps2 > S2_cap) | over2 | \
         ((flags & 1) > 0)
     slot_overflow = slot_overflow | ((flags & 2) > 0)
-    with tracing.span("tiles.merge", dev):
+    with tracing.span("tiles.merge", dev, **tag):
         gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
-    with tracing.span("tiles.finish", dev):
+    with tracing.span("tiles.finish", dev, **tag):
         total, contacts = _finish_contacts(
             gi, gj, total, leaf_index, narrow_fn, capacity,
             leaf_index_b=leaf_index_b, sort_pairs=sort_pairs)
@@ -760,6 +765,7 @@ def traverse_tiles_pair_fixed(bvh1: BVH, bvh2: BVH, capacity: int, *,
     have leaves of one kind.  ``bvh1`` is tiled with ``alg.bands``
     sub-bands, ``bvh2`` needs none; ``alg.decode_k`` is not read.
     """
+    tracing.count("calls.tiles_pair")
     return _tiles_fixed(bvh1, bvh2, capacity, alg, pair_capacity, narrow)
 
 
@@ -851,12 +857,11 @@ def traverse_tiles_pair(bvh1: BVH, bvh2: BVH, *,
     capacity of twice the larger leaf count, ending in
     ``traverse(bvh1, bvh2, LVTTraversal())``."""
     from .api import _traverse
+    tracing.count("calls.tiles_pair")
     alg = _merge_cached_alg(alg or TileTraversal(), cache)
     T = -(-bvh1.num_leaves // alg.tile) + -(-bvh2.num_leaves // alg.tile)
     return _grow_tiles(
-        lambda c, a, pc: traverse_tiles_pair_fixed(bvh1, bvh2, c, alg=a,
-                                                   pair_capacity=pc,
-                                                   narrow=narrow),
+        lambda c, a, pc: _tiles_fixed(bvh1, bvh2, c, a, pc, narrow),
         lambda: _traverse(bvh1, bvh2, LVTTraversal(), narrow=narrow,
                           options=options),
         alg, _pow2_capacity(2 * max(bvh1.num_leaves, bvh2.num_leaves),

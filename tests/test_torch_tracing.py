@@ -16,8 +16,10 @@ import implicitbvh_tpu_torch as tb
 from implicitbvh_tpu_torch import tracing
 from implicitbvh_tpu_torch.traverse import walk as twalk
 
-TILE_STAGES = {"tiles.phase1", "tiles.count", "tiles.regroup", "tiles.emit",
-               "tiles.merge", "tiles.finish"}
+TILE_STAGES = {"tiles.fields", "tiles.phase1", "tiles.count",
+               "tiles.regroup", "tiles.emit", "tiles.merge", "tiles.finish"}
+FALLBACK_STAGES = {"tiles.fields", "tiles.phase1", "tiles.emit",
+                   "tiles.finish"}
 RAY_STAGES = {"rays.sort", "rays.phase1", "rays.count", "rays.regroup",
               "rays.emit", "rays.finish"}
 BUILD_STAGES = {"build.morton", "build.sort", "build.nodes"}
@@ -227,6 +229,75 @@ def test_syncs_are_the_sites_a_call_hits(query):
     assert c["syncs"] == sum(want.values())
 
 
+def supertiles(n: int, tile: int = 32) -> int:
+    """Supertiles of 32 tiles over ``n`` leaves."""
+    return -(-(-(-n // tile)) // 32)
+
+
+@pytest.mark.parametrize("route", ["two_phase", "fallback"])
+def test_the_pair_route_marks_its_stages_and_counts_its_grid(route):
+    """A fixed two-tree call: ``tiles.fields`` for two bodies, every other
+    stage marked ``pair=True``, one ``calls.tiles_pair``, the S1 x S2
+    grid's cells, and no host sync."""
+    bvh1 = tb.build(particles(3000, 14.0))
+    bvh2 = tb.build(particles(2000, 12.0, seed=5))
+    capacity = 1 << 15 if route == "two_phase" else 30_000
+    with tracing.enabled():
+        total, _, overflow, _ = tb.traverse_tiles_pair_fixed(
+            bvh1, bvh2, capacity,
+            alg=tb.TileTraversal(tile=32, row_cap=16, pair_cap=128))
+    assert int(total) > 0 and int(overflow) == 0
+    named = by_name(tracing.snapshot()["spans"])
+    assert set(named) == (TILE_STAGES if route == "two_phase"
+                          else FALLBACK_STAGES)
+    assert [s["attrs"] for s in named["tiles.fields"]] == [{"bodies": 2}]
+    for name, group in named.items():
+        if name != "tiles.fields":
+            assert all(s["attrs"] == {"pair": True} for s in group), name
+    c = tracing.counters()
+    assert c["calls.tiles_pair"] == 1 and c["syncs"] == 0
+    assert c["tiles.grid_cells"] == supertiles(3000) * supertiles(2000) == 6
+
+
+def test_the_self_route_marks_no_stage_and_counts_its_triangle():
+    """A fixed self-contact call: ``tiles.fields`` for one body, no stage
+    marked ``pair``, no ``calls.tiles_pair``, the triangle's cells."""
+    bvh = tb.build(particles(5000, 17.0))
+    with tracing.enabled():
+        total, _, overflow, _ = tb.traverse_tiles_fixed(
+            bvh, 1 << 15, alg=tb.TileTraversal(tile=32, row_cap=16,
+                                               pair_cap=128))
+    assert int(total) > 0 and int(overflow) == 0
+    named = by_name(tracing.snapshot()["spans"])
+    assert set(named) == TILE_STAGES
+    assert [s["attrs"] for s in named["tiles.fields"]] == [{"bodies": 1}]
+    assert all(s["attrs"] == {} for name, group in named.items()
+               if name != "tiles.fields" for s in group)
+    c = tracing.counters()
+    assert "calls.tiles_pair" not in c and c["syncs"] == 0
+    assert c["tiles.grid_cells"] == 5 * 6 // 2 == \
+        supertiles(5000) * (supertiles(5000) + 1) // 2
+
+
+def test_a_growing_pair_call_counts_once():
+    """``traverse(bvh1, bvh2, TileTraversal())`` past its slot caps: several
+    runs, one ``calls.tiles_pair``, the grid counted a run; with
+    ``cache`` one run, one more call."""
+    bvh1 = tb.build(particles(3000, 14.0))
+    bvh2 = tb.build(particles(2000, 12.0, seed=5))
+    alg = tb.TileTraversal(tile=32, row_cap=1, pair_cap=1)
+    res = tb.traverse(bvh1, bvh2, alg)
+    c = tracing.counters()
+    assert c["grow.runs"] > 1 and c.get("grow.slots", 0) >= 1
+    assert c["calls.tiles_pair"] == 1
+    assert c["tiles.grid_cells"] == 6 * c["grow.runs"]
+    tb.traverse(bvh1, bvh2, alg, cache=res)
+    c2 = tracing.counters()
+    assert c2["calls.tiles_pair"] == 2
+    assert c2["grow.runs"] == c["grow.runs"] + 1
+    assert c2["tiles.grid_cells"] == c["tiles.grid_cells"] + 6
+
+
 def test_snapshot_bounds_its_buffer_and_reset_clears(monkeypatch):
     monkeypatch.setattr(tracing, "MAX_SPANS", 4)
     monkeypatch.setattr(tracing, "_spans", __import__("collections").deque(
@@ -348,6 +419,52 @@ def test_a_graph_captured_with_tracing_on_times_every_stage(cuda):
         assert int(stat[1]) == 0 and int(stat[0]) > 0
         last = ms
     assert sum(last) > 0
+
+
+@pytest.mark.gpu
+def test_a_captured_pair_query_times_its_stages(cuda):
+    """A two-tree build + fixed tile query captured with tracing on: every
+    stage, ``tiles.fields`` for two bodies and the rest marked ``pair``,
+    has a device time after each replay; the capture made no host
+    sync."""
+    bvh1 = tb.build(particles(1 << 15, 40.0, r=0.2, device=cuda))
+    base = particles(1 << 13, 20.0, r=0.2, seed=5, device=cuda)
+    t = torch.zeros((), device=cuda)
+    alg = tb.TileTraversal(row_cap=16, pair_cap=128)
+
+    def step():
+        xs = tuple(x + 10.0 + 0.5 * torch.sin(t) for x in base.xs)
+        bvh2 = tb.build(tb.BSphere(xs, base.r))
+        total, _, overflow, _ = tb.traverse_tiles_pair_fixed(
+            bvh1, bvh2, 1 << 17, alg=alg)
+        t.add_(1.0)
+        return torch.stack([total, overflow])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    tracing.reset()
+    graph = torch.cuda.CUDAGraph()
+    with tracing.enabled(), torch.cuda.graph(graph):
+        stat = step()
+    assert tracing.counters()["syncs"] == 0
+    named = by_name(tracing.snapshot()["spans"])
+    assert TILE_STAGES <= set(named)
+    assert [s["attrs"] for s in named["tiles.fields"]] == [{"bodies": 2}]
+    for _ in range(2):
+        graph.replay()
+        assert int(stat[1]) == 0 and int(stat[0]) > 0
+        spans = tracing.snapshot()["spans"]
+        for s in spans:
+            assert s["captured"] and s["device_ms"] is not None
+            if s["name"] in TILE_STAGES - {"tiles.fields"}:
+                assert s["attrs"] == {"pair": True}
+    assert sum(s["device_ms"] for s in spans
+               if s["name"] == "tiles.fields") > 0
 
 
 @pytest.mark.gpu
