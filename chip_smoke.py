@@ -234,6 +234,19 @@ held against their plain versions at the path's inputs only.
     and the plain version's time.  R1 is also held against its plain
     version wherever the ray kernels are (phases 6, 8 and 24), and phase 7
     requires one launch of it per ray query.
+26. L1 (``ops.leader_group``, the tile engine's leader packing) at the
+    inputs the paths give it at the three tile cells' shapes: the bench
+    scene's self-contact at ``particles-1m``'s capacities, the bench BVH
+    against a 249,882-triangle body at ``bed1m-tool250k``'s, and 100,000
+    rays against the 249,882-triangle scene at capacity 524,288 (the ray
+    regroup's 1,048,576 entries): each query's own count of
+    ``launches.leader_group`` (two in the self and two-tree queries, one
+    in the ray query; a row's ``launches`` is its query's count), then at
+    each recorded input kernel == plain, with no host sync, its eager and
+    device times beside its bytes bound (inputs read once, outputs
+    written once), the plain chain's time and a lone ``torch.cummax`` of
+    the same length (``library_ms``).  Every tile path of the phases
+    before runs L1.
 
 Each phase group prints its seconds and the script's total so far.
 W1's and W2's rows (``walk_lanes[...]``, ``dfs_lanes[self]``) are their
@@ -3436,6 +3449,110 @@ def main() -> int:
     del d_bvh, dp, dd, rf32, tl32
     log(f"time: phase 25 (R1 at the dragon-rays shape) "
         f"{time.perf_counter() - t25:.1f} s; the script "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # 26. L1 at the inputs the tile cells' paths give it: every call of
+    # leader_group in a self query, a two-tree query and a ray query at the
+    # cells' capacities, kernel == plain, timed beside its bytes bound, the
+    # plain chain and a lone torch.cummax of the same length
+    t26 = time.perf_counter()
+    calls = []
+
+    def recorder(ti, valid, payloads, pads, W, S_cap):
+        calls.append((ti, valid, tuple(payloads), pads, W, S_cap))
+        return ops.leader_group(ti, valid, payloads, pads, W, S_cap)
+
+    l1_bvh = ib.build(ib.bsphere_from_triangles(
+        *to_dev(synth_triangles(N_BENCH), dev)))
+    tool = ib.build(ib.bsphere_from_triangles(
+        *to_dev(synth_triangles(N_DRAGON, seed=3), dev)))
+    r_bvh = ib.build(ib.bsphere_from_triangles(
+        *to_dev(synth_triangles(N_DRAGON, seed=0), dev)))
+    rp, rd = bench_rays(N_DRAGON)
+    queries = (
+        ("particles", lambda: ib.traverse_tiles_fixed(
+            l1_bvh, 131072, alg=ib.TileTraversal(row_cap=4, pair_cap=32),
+            pair_capacity=294912), ("runs", "regroup")),
+        ("two_body", lambda: ib.traverse_tiles_pair_fixed(
+            l1_bvh, tool, 144384,
+            alg=ib.TileTraversal(row_cap=16, pair_cap=128),
+            pair_capacity=188416), ("runs", "regroup")),
+        ("rays", lambda: ib.traverse_rays_tiles_fixed(
+            r_bvh, rp, rd, 524288), ("regroup",)))
+    saved = tiles.leader_group
+    tiles.leader_group = recorder
+    try:
+        # each query's own launches of L1, read from its run: two in a self
+        # or two-tree query (the run lists and the emit regroup), one in a
+        # ray tile run (the regroup)
+        recorded = []
+        for cell, query, stages in queries:
+            calls.clear()
+            ops.reset_launch_counts()
+            query()
+            torch.cuda.synchronize()
+            path_launches = ops.launch_count(ops.leader_group)
+            if len(calls) != len(stages) or path_launches != len(stages):
+                raise AssertionError(
+                    f"L1: the {cell} query called leader_group {len(calls)} "
+                    f"times and launched it {path_launches} times, not "
+                    f"{len(stages)}")
+            log(f"L1: the {cell} query launched leader_group "
+                f"{path_launches} times ({', '.join(stages)})")
+            recorded += [(f"{cell}_{st}", a, path_launches)
+                         for st, a in zip(stages, calls)]
+    finally:
+        tiles.leader_group = saved
+    for label, args, path_launches in recorded:
+        ti, valid, payloads, pads, W, S_cap = args
+        E, k = ti.shape[0], len(payloads)
+        row = f"leader_group[{label}]"
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ops.leader_group(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = ops.leader_group_plain(*args)
+        torch.cuda.synchronize()
+        same = (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+                and all(torch.equal(x, y) for x, y in zip(got[1], want[1])))
+        if not same:
+            raise AssertionError(f"{row} differs from its plain version")
+        v = valid.int()
+        cv_ex = torch.cumsum(v, 0) - v
+        prev = torch.cat([ti.new_full((1,), -1), ti[:-1]])
+        scan_in = torch.where(ti != prev, cv_ex, -1)    # the chain's cummax
+        k_ms = time_ms(lambda: ops.leader_group(*args))
+        d_ms = device_ms(lambda: ops.leader_group(*args),
+                         ("leader_tile_kernel", "leader_scan_kernel"),
+                         per_record=True)
+        p_ms = time_ms(lambda: ops.leader_group_plain(*args))
+        lib_ms = time_ms(lambda: torch.cummax(scan_in, 0))
+        lib_dms = device_ms(lambda: torch.cummax(scan_in, 0),
+                            ("scan_innermost_dim_with_indices",))
+        n_bytes = nbytes(ti, valid, *got[1]) + E * sum(
+            p.element_size() for p in payloads) + 4 * (S_cap + 1)
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"time: {row} (E {E}, k {k}, W {W}, S_cap {S_cap}, "
+            f"{int(valid.sum())} valid, nsteps {int(got[2])}): kernel "
+            f"{k_ms:.4f} ms, device {fmt_ms(d_ms)}, bound {b_ms:.6f} ms "
+            f"(bytes: {n_bytes}), plain chain {p_ms:.4f} ms, torch.cummax "
+            f"alone {lib_ms:.4f} ms (device {fmt_ms(lib_dms)}); kernel == "
+            f"plain (exact), no host sync [{card}]")
+        rows.append({"name": row, "route": "cuda",
+                     "source": "implicitbvh_tpu_torch/csrc/leader_group.cu",
+                     "replaces": "none: jax.lax.cummax glue in "
+                                 "implicitbvh_tpu/traverse/tiles.py:346",
+                     "launches": path_launches, "max_abs_err": 0,
+                     "ms": k_ms,
+                     "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": "bytes", "bound_bytes_ms": b_ms,
+                     "bound_operations_ms": 0.0, "library_ms": lib_ms})
+        del got, want, scan_in
+    del l1_bvh, tool, r_bvh, rp, rd, recorded, calls
+    log(f"time: phase 26 (L1 at the tile cells' shapes) "
+        f"{time.perf_counter() - t26:.1f} s; the script "
         f"{time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels of the tile engine (B1-B6 and the ray query's
-phase 1, R1), with their plain versions, and of the walks (W1, W2), whose
-plain versions are the traverse layer's torch-op loops."""
+"""Hand-written CUDA kernels of the tile engine (B1-B6, the ray query's
+phase 1, R1, and the leader packing, L1), with their plain versions, and
+of the walks (W1, W2), whose plain versions are the traverse layer's
+torch-op loops."""
 
 from .. import tracing
 from .compaction import (compact_flat, compact_flat_plain, finish_compact,
                          tile_compact, tile_compact_plain)
+from .grouping import leader_group, leader_group_plain
 from .subtile import (ray_band_bits, ray_band_bits_plain, subtile_band_bits,
                       subtile_band_bits_plain)
 from .tile_contact import (emit_plan, emit_plan_plain, run_live_pairs,
@@ -17,7 +19,8 @@ from .walk import dfs_lanes, walk_lanes
 
 KERNELS = (subtile_band_bits, tile_run_counts, tile_group_emit,
            tile_group_contacts, tile_compact, tile_pair_contacts,
-           compact_flat, emit_plan, walk_lanes, dfs_lanes, ray_band_bits)
+           compact_flat, emit_plan, walk_lanes, dfs_lanes, ray_band_bits,
+           leader_group)
 
 
 def reset_launch_counts():
@@ -35,6 +38,7 @@ def launch_count(kernel) -> int:
 __all__ = ["KERNELS", "compact_flat", "compact_flat_plain", "dfs_lanes",
            "emit_plan",
            "emit_plan_plain", "finish_compact", "launch_count",
+           "leader_group", "leader_group_plain",
            "ray_band_bits", "ray_band_bits_plain", "reset_launch_counts",
            "run_live_pairs", "subtile_band_bits", "subtile_band_bits_plain",
            "tile_compact", "tile_compact_plain", "tile_group_contacts",

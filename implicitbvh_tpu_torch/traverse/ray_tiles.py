@@ -42,6 +42,7 @@ from .. import tracing
 from ..build import BVH
 from ..morton import DefaultMortonAlgorithm, morton_encode
 from ..options import DEFAULT_OPTIONS, BVHOptions
+from ..ops.grouping import scatter_drop
 from ..ops.subtile import ray_band_bits
 from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
                                 tile_group_emit, tile_run_counts)
@@ -49,7 +50,7 @@ from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal, _extract_contacts,
                     _finish_contacts, _grow_tiles, _merge_cached_alg,
                     _merge_streams, _moment_decode, _popcount,
                     _pow2_capacity, _regroup_emit_runs, _run_step_cap,
-                    _scatter_drop, _step_caps, _tiled_fields, _wrap_int32)
+                    _step_caps, _tiled_fields, _wrap_int32)
 from .lvt import _empty_traversal
 from .types import BVHTraversal, LVTTraversal
 
@@ -134,14 +135,14 @@ def _phase1_ray_runs(rfields, tiles, W: int, S_cap: int, R: int,
     step, lane, nsteps = _group_positions(live, W)
     dst = torch.where(live, step * W + lane, S_cap * W).reshape(-1)
     g_idx = torch.arange(NGT, dtype=torch.int32, device=bits.device)
-    run_idx = _scatter_drop(S_cap * W, dst,
-                            g_idx.expand(RT, NGT).reshape(-1), pad_run)
+    run_idx = scatter_drop(S_cap * W, dst,
+                           g_idx.expand(RT, NGT).reshape(-1), pad_run)
     bm_words = torch.stack([
-        _scatter_drop(S_cap * W, dst, words[..., q].reshape(-1), 0)
+        scatter_drop(S_cap * W, dst, words[..., q].reshape(-1), 0)
         for q in range(NW)])
     rt_idx = torch.arange(RT, dtype=torch.int32, device=bits.device)
-    a_idx = _scatter_drop(S_cap, torch.where(live, step, S_cap).reshape(-1),
-                          rt_idx[:, None].expand(RT, NGT).reshape(-1), 0)
+    a_idx = scatter_drop(S_cap, torch.where(live, step, S_cap).reshape(-1),
+                         rt_idx[:, None].expand(RT, NGT).reshape(-1), 0)
     return a_idx, run_idx, bm_words, nsteps, num_checks
 
 
@@ -156,11 +157,11 @@ def _phase1_ray_tile_groups(rfields, tiles, W: int, S_cap: int):
     step, lane, nsteps = _group_positions(hits, W)
     dst = torch.where(hits, step * W + lane, S_cap * W).reshape(-1)
     t_idx = torch.arange(T, dtype=torch.int32, device=bits.device)
-    b_idx = _scatter_drop(S_cap * W, dst, (t_idx | (bits << 16)).reshape(-1),
-                          T)
+    b_idx = scatter_drop(S_cap * W, dst, (t_idx | (bits << 16)).reshape(-1),
+                         T)
     rt_idx = torch.arange(RT, dtype=torch.int32, device=bits.device)
-    a_idx = _scatter_drop(S_cap, torch.where(hits, step, S_cap).reshape(-1),
-                          rt_idx[:, None].expand(RT, T).reshape(-1), 0)
+    a_idx = scatter_drop(S_cap, torch.where(hits, step, S_cap).reshape(-1),
+                         rt_idx[:, None].expand(RT, T).reshape(-1), 0)
     return a_idx, b_idx, nsteps
 
 

@@ -45,6 +45,7 @@ from .. import tracing
 from ..build import BVH
 from ..options import DEFAULT_OPTIONS, BVHOptions
 from ..ops.compaction import compact_flat
+from ..ops.grouping import scatter_drop, leader_group
 from ..ops.subtile import subtile_band_bits
 from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
                                 tile_group_emit, tile_run_counts)
@@ -136,20 +137,11 @@ def _merge_cached_alg(alg: TileTraversal, cache) -> TileTraversal:
     return alg
 
 
-def _scatter_drop(size, dst, values, fill):
-    """``full(size, fill)`` with ``values`` written at ``dst``; targets
-    outside ``[0, size)`` are dropped."""
-    dst = torch.where((dst >= 0) & (dst < size), dst, size).long()
-    out = torch.full((size + 1,), fill, dtype=values.dtype,
-                     device=values.device)
-    return out.scatter_(0, dst, values)[:size]
-
-
 def _compact_flat(flat, values, cap, pad=0):
     """Compact ``values`` where ``flat`` into ``(cap,)``; (out, count)."""
     v = flat.int()
     pos = torch.cumsum(v, 0) - v
-    out = _scatter_drop(cap, torch.where(flat, pos, cap), values, pad)
+    out = scatter_drop(cap, torch.where(flat, pos, cap), values, pad)
     return out, v.sum(dtype=torch.int32)
 
 
@@ -249,28 +241,6 @@ def _phase1_superpairs(tiles, P_cap: int, tiles_b=None, sp_round: int = 16):
     return spacked // S2, spacked % S2, nsp, nsp > SP_cap
 
 
-def _leader_group(ti_flat, valid, payloads, pads, W: int, S_cap: int):
-    """Pack the valid entries of a ti-sorted list W per step, so a step
-    shares one a-tile.  Returns ``(a_idx (S_cap,), grouped payloads
-    (S_cap*W,) each, nsteps)``."""
-    v = valid.int()
-    cv_ex = torch.cumsum(v, 0) - v
-    prev = torch.cat([ti_flat.new_full((1,), -1), ti_flat[:-1]])
-    run_base = torch.cummax(
-        torch.where(ti_flat != prev, cv_ex, -1), 0).values
-    posr = cv_ex - run_base
-    leader = valid & (posr % W == 0)
-    lead_cum = torch.cumsum(leader.int(), 0)
-    gid = lead_cum - 1
-    nsteps = lead_cum[-1].int()
-    a_idx = _scatter_drop(S_cap, torch.where(leader, gid, S_cap),
-                          ti_flat.int(), 0)
-    b_dst = torch.where(valid, gid * W + posr % W, S_cap * W)
-    grouped = tuple(_scatter_drop(S_cap * W, b_dst, p.int(), pad)
-                    for p, pad in zip(payloads, pads))
-    return a_idx, grouped, nsteps
-
-
 def _runs_from_bits(bits, si, sj, G: int, W: int, S_cap: int, R: int,
                     pad_run: int, NB: int = 4):
     """(SP_cap, 32, 32) band bits -> sorted, W-grouped aligned-run lists.
@@ -305,7 +275,7 @@ def _runs_from_bits(bits, si, sj, G: int, W: int, S_cap: int, R: int,
     ti_r = (key_i >> 13) & 0xFFFF
     run_r = key_i & 0x1FFF
     rvalid = torch.arange(run_cap, device=dev) < nruns
-    a_idx, grouped, nsteps = _leader_group(
+    a_idx, grouped, nsteps = leader_group(
         ti_r, rvalid, (run_r, *words_s.unbind(1)), (pad_run,) + (0,) * NW,
         W, S_cap)
     bm_words = torch.stack(grouped[1:])
@@ -392,7 +362,7 @@ def _group_pairs(packed, band, npairs, W: int, S_cap: int, T_pad: int):
     key = torch.where(valid, packed.long() & 0xFFFFFFFF, 1 << 32)
     key, perm = torch.sort(key)
     b_entry = (key & 0xFFFF) | (band[perm].long() << 16)
-    a_idx, (b_idx,), nsteps = _leader_group(
+    a_idx, (b_idx,), nsteps = leader_group(
         (key >> 16) & 0xFFFF, valid, (b_entry,), (T_pad,), W, S_cap)
     return a_idx, b_idx, nsteps
 
@@ -478,13 +448,13 @@ def _regroup_emit_runs(a_idx, run_idx, bm_words, counts, colmax, W2: int,
         # row of entry (slot, t) in the word plane: the sort key is the
         # original (step * W + w) slot of a live run
         flat = slot_r.repeat_interleave(R) * R + t
-        dec_pk = _scatter_drop(
+        dec_pk = scatter_drop(
             D_cap, ddst, _wrap_int32((ti_flat.long() << 16) | tj_c), 0)
-        dec_flat = _scatter_drop(D_cap, ddst, flat.int(), 0)
-        dec_cnt = _scatter_drop(D_cap, ddst, cnt, 0)
+        dec_flat = scatter_drop(D_cap, ddst, flat.int(), 0)
+        dec_cnt = scatter_drop(D_cap, ddst, cnt, 0)
         ndec = dm.sum(dtype=torch.int32).clamp(max=D_cap)
     payload = tj_c | (band4 << 16) | (cnt << 20) | (okbit << 28)
-    a_idx2, (b_idx2,), nsteps2 = _leader_group(
+    a_idx2, (b_idx2,), nsteps2 = leader_group(
         ti_flat, emit_valid, (payload,), (T_pad,), W2, S2_cap)
     if decode_k:
         return a_idx2, b_idx2, nsteps2, over2, (dec_pk, dec_flat, dec_cnt,
@@ -537,8 +507,8 @@ def _moment_decode(words, dec_pk, dec_flat, dec_cnt, ndec, G: int, K: int,
     total = incl[-1]
     d1 = torch.where(one, offs + exc, capacity)
     d2 = torch.where(two, offs + exc + 1, capacity)
-    stream = _scatter_drop(capacity, torch.cat([d1, d2], 1).reshape(-1),
-                           torch.cat([p1, p2], 1).reshape(-1), 0)
+    stream = scatter_drop(capacity, torch.cat([d1, d2], 1).reshape(-1),
+                          torch.cat([p1, p2], 1).reshape(-1), 0)
     spk = dec_pk[(stream >> 14).clamp(0, D_cap - 1).long()]
     gi = ((spk >> 16) & 0xFFFF) * G + ((stream >> 7) & 0x7F)
     gj = (spk & 0xFFFF) * G + (stream & 0x7F)
