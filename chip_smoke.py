@@ -499,12 +499,14 @@ def main() -> int:
     ray_fallback_kernels = ("tile_group_contacts",)
 
     @contextlib.contextmanager
-    def recorded_inputs(module=tiles):
+    def recorded_inputs():
         """Record the arguments each kernel wrapper gets from the path
-        (the wrappers ``module`` calls by name; B6 is on no path)."""
+        (the wrappers the engine's modules call by name: the tile back
+        ends, R1, W1 and W2; B6 is on no path)."""
         seen = {}
-        saved = {name: getattr(module, name) for name in kernels
-                 if hasattr(module, name)}
+        saved = [(module, name, getattr(module, name))
+                 for module in (tiles, ray_tiles, twalk, dfs)
+                 for name in kernels if hasattr(module, name)]
 
         def recorder(name, fn):
             def call(*args, **kw):
@@ -512,12 +514,12 @@ def main() -> int:
                 return fn(*args, **kw)
             return call
 
-        for name, fn in saved.items():
+        for module, name, fn in saved:
             setattr(module, name, recorder(name, fn))
         try:
             yield seen
         finally:
-            for name, fn in saved.items():
+            for module, name, fn in saved:
                 setattr(module, name, fn)
 
     def to_dev(tris, device):
@@ -819,15 +821,15 @@ def main() -> int:
         """The ray kernels' inputs on one scene: B2 (and B3) from the
         two-phase route, B3 from ``emit_alg`` when given (without the
         decode every pair with hits reaches it), B4 from the fallback."""
-        with recorded_inputs(ray_tiles) as seen:
+        with recorded_inputs() as seen:
             ib.traverse_rays_tiles_fixed(bvh, p, d, capacity,
                                          alg=two_phase_alg)
         if emit_alg is not None:
-            with recorded_inputs(ray_tiles) as seen_e:
+            with recorded_inputs() as seen_e:
                 ib.traverse_rays_tiles_fixed(bvh, p, d, capacity,
                                              alg=emit_alg)
             seen["tile_group_emit"] = seen_e["tile_group_emit"]
-        with recorded_inputs(ray_tiles) as seen_f:
+        with recorded_inputs() as seen_f:
             ib.traverse_rays_tiles_fixed(bvh, p, d, capacity,
                                          alg=fallback_alg)
         seen.update(seen_f)
@@ -1193,7 +1195,7 @@ def main() -> int:
         call: the write pass)."""
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        with recorded_inputs(twalk) as seen:
+        with recorded_inputs() as seen:
             t0 = time.perf_counter()
             out = call()
             torch.cuda.synchronize()
@@ -1282,39 +1284,26 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    def stage_ms_of(module, stages, query):
-        """One query with CUDA events around the stages ``module`` calls by
-        name (a stage called twice is summed); what lies between them is
-        "the rest"."""
-        spans, saved = {}, {}
-
-        def timed(label, fn):
-            def call(*args, **kw):
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                out = fn(*args, **kw)
-                e1.record()
-                spans.setdefault(label, []).append((e0, e1))
-                return out
-            return call
-
+    def span_ms(query, stages):
+        """One query with tracing on: each stage's device time from the
+        spans it opened, ``stages`` a tuple of (label, span name); a label
+        given several names sums their spans, a name given several labels
+        deals its spans to them in turn.  "the rest" is the query's time
+        less the stages'."""
+        takers, t, dealt = {}, {}, {}
         for label, name in stages:
-            saved[name] = getattr(module, name)
-            setattr(module, name, timed(label, saved[name]))
-        try:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
+            takers.setdefault(name, []).append(label)
+            t[label] = 0.0
+        with tracing.enabled(), tracing.span("smoke.query", dev) as whole:
             query()
-            b.record()
-            b.synchronize()
-        finally:
-            for name, fn in saved.items():
-                setattr(module, name, fn)
-        t = {label: sum(e0.elapsed_time(e1) for e0, e1 in spans[label])
-             for label, _ in stages}
-        t["the rest"] = a.elapsed_time(b) - sum(t.values())
+        for sp in tracing.snapshot()["spans"]:
+            if sp["id"] == whole.id:
+                t["the rest"] = sp["device_ms"] - sum(t.values())
+            elif sp["parent"] == whole.id and sp["name"] in takers:
+                labels = takers[sp["name"]]
+                k = dealt.get(sp["name"], 0)
+                dealt[sp["name"]] = k + 1
+                t[labels[k % len(labels)]] += sp["device_ms"]
         return t
 
     def host_ms(query):
@@ -1328,17 +1317,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(host)
 
-    def stage_ms(alg):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        s = ib.bsphere_from_triangles(*tris)
-        ev[1].record()
-        b = ib.build(s)
-        ev[2].record()
-        ib.traverse_tiles_fixed(b, capacity, alg=alg)
-        ev[3].record()
-        ev[3].synchronize()
-        return [ev[k].elapsed_time(ev[k + 1]) for k in range(3)]
+    tile_spans = ("tiles.fields", "tiles.phase1", "tiles.count",
+                  "tiles.regroup", "tiles.emit", "tiles.merge",
+                  "tiles.finish")
+    step_stages = (("bounding spheres", "spheres"), ("build", "build")) + \
+        tuple(("traversal", name) for name in tile_spans)
 
     def time_route(route, alg):
         """The route's step end to end and by stage, its host enqueue time
@@ -1346,11 +1329,12 @@ def main() -> int:
         step_ms = time_ms(lambda: step(*tris, capacity, alg))
         log(f"time: bench step end to end, {route}: {step_ms:.4f} ms "
             f"[{card}]")
-        stages = [stage_ms(alg) for _ in range(7)]
+        stages = [span_ms(lambda: step(*tris, capacity, alg), step_stages)
+                  for _ in range(7)]
         log(f"time: stages, {route} (median of 7) "
-            + ", ".join(f"{n} {statistics.median(t[k] for t in stages):.4f}"
-                        f" ms" for k, n in enumerate(
-                            ("bounding spheres", "build", "traversal")))
+            + ", ".join(f"{n} {statistics.median(t[n] for t in stages):.4f}"
+                        f" ms" for n in ("bounding spheres", "build",
+                                         "traversal"))
             + f" [{card}]")
         log(f"time: host enqueue of one step, {route}: "
             f"{host_ms(lambda: step(*tris, capacity, alg)):.4f} ms "
@@ -1361,9 +1345,12 @@ def main() -> int:
     time_route("two-phase", two_phase)
     time_route("fallback", fallback)
 
-    ray_stages = (("sort rays", "_sort_rays"), ("phase 1", "_phase1_ray_runs"),
-                  ("B2", "tile_run_counts"), ("regroup", "_regroup_emit_runs"),
-                  ("decode", "_moment_decode"), ("B3", "tile_group_emit"))
+    # the first rays.phase1 span tiles the leaves and rays, the second is R1
+    # and the run lists; rays.emit holds the decode and B3
+    ray_stages = (("sort rays", "rays.sort"), ("tile", "rays.phase1"),
+                  ("phase 1", "rays.phase1"), ("B2", "rays.count"),
+                  ("regroup", "rays.regroup"), ("decode and B3", "rays.emit"),
+                  ("merge", "rays.merge"), ("finish", "rays.finish"))
 
     def ray_query(alg=None):
         return ib.traverse_rays_tiles_fixed(ray_bvh, rp, rd, RAY_CAPACITY,
@@ -1372,8 +1359,7 @@ def main() -> int:
     ray_ms = time_ms(ray_query)
     log(f"time: ray query end to end, two-phase ({N_RAYS} rays, "
         f"{N_RAY_TRIS} leaves): {ray_ms:.4f} ms [{card}]")
-    stages = [stage_ms_of(ray_tiles, ray_stages, ray_query)
-              for _ in range(7)]
+    stages = [span_ms(ray_query, ray_stages) for _ in range(7)]
     log("time: ray stages (median of 7) "
         + ", ".join(f"{n} {statistics.median(t[n] for t in stages):.4f} ms"
                     for n in stages[0]) + f" [{card}]")
@@ -1385,19 +1371,18 @@ def main() -> int:
         f"(median of 3) [{card}]")
 
     # the full-width pair query (traversal only, on the two built BVHs)
-    pair_stages = {
-        "two-phase": (("tile the leaves", "_tiled_fields"),
-                      ("phase 1a (superpairs)", "_phase1_superpairs"),
-                      ("phase 1b (B1, run lists)", "_slice_runs"),
-                      ("B2", "tile_run_counts"),
-                      ("regroup", "_regroup_emit_runs"),
-                      ("B3", "tile_group_emit"),
-                      ("finish", "_finish_contacts")),
-        "fallback": (("tile the leaves", "_tiled_fields"),
-                     ("phase 1 (with B1, B5)", "_phase1_tile_pairs"),
-                     ("group", "_group_pairs"),
-                     ("B4", "tile_group_contacts"),
-                     ("extract and finish", "_extract_contacts")),
+    pair_stages = {   # the two-phase route's first tiles.phase1 span is
+        # the superpairs, its second B1 and the run lists
+        "two-phase": (("tile the leaves", "tiles.fields"),
+                      ("phase 1a (superpairs)", "tiles.phase1"),
+                      ("phase 1b (B1, run lists)", "tiles.phase1"),
+                      ("B2", "tiles.count"), ("regroup", "tiles.regroup"),
+                      ("B3", "tiles.emit"), ("merge", "tiles.merge"),
+                      ("finish", "tiles.finish")),
+        "fallback": (("tile the leaves", "tiles.fields"),
+                     ("phase 1 (with B1, B5) and group", "tiles.phase1"),
+                     ("B4", "tiles.emit"),
+                     ("extract and finish", "tiles.finish")),
     }
     for route, alg in (("two-phase", two_phase), ("fallback", fallback)):
         def pair_query(alg=alg):
@@ -1407,7 +1392,7 @@ def main() -> int:
         pair_ms = time_ms(pair_query)
         log(f"time: pair query end to end, {route} ({N_BENCH} x {N_BODY2} "
             f"leaves): {pair_ms:.4f} ms [{card}]")
-        stages = [stage_ms_of(tiles, pair_stages[route], pair_query)
+        stages = [span_ms(pair_query, pair_stages[route])
                   for _ in range(7)]
         log(f"time: pair stages, {route} (median of 7) "
             + ", ".join(f"{n} {statistics.median(t[n] for t in stages):.4f} "
@@ -1758,7 +1743,7 @@ def main() -> int:
     def run_dfs(label, target, sph, want, parent_s):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        with recorded_inputs(dfs) as seen:
+        with recorded_inputs() as seen:
             t0 = time.perf_counter()
             out = ib.traverse(target, ib.DFSTraversal())
             torch.cuda.synchronize()
@@ -3019,7 +3004,7 @@ def main() -> int:
     # self-contact through W1 (a million lanes, one stage), phase 2's set
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with recorded_inputs(twalk) as seen:
+    with recorded_inputs() as seen:
         t0 = time.perf_counter()
         lvt_1m = ib.traverse(bvh, ib.LVTTraversal())
         torch.cuda.synchronize()

@@ -2,7 +2,7 @@
 CUDA kernel L1 and its plain version.
 
 The two-phase route packs its run lists (``traverse/tiles.py:
-_runs_from_bits``), its emit lists (``_regroup_emit_runs``, rays included)
+_slice_runs``), its emit lists (``_regroup_emit_runs``, rays included)
 and the fallback's pair list (``_group_pairs``) W entries a step, so that
 a step shares one a-tile.  The JAX package computes this in XLA glue
 (``implicitbvh_tpu/traverse/tiles.py:_leader_group``, ``jax.lax.cummax``

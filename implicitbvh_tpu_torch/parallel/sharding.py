@@ -42,9 +42,9 @@ import torch.distributed as dist
 from ..build import BVH, build
 from ..raytrace import _prep_rays, _walk_rays
 from ..traverse.lvt import _scan, default_start_level_lvt
-from ..traverse.tiles import (TileTraversal, _pair_capacity_for,
-                              _phase1_superpairs, _run_step_cap, _step_caps,
-                              _tiled_sets, _two_phase_slice)
+from ..traverse.tiles import (TileTraversal, _phase1_superpairs,
+                              _run_step_cap, _step_caps, _tile_query,
+                              _two_phase, _two_phase_slice)
 from ..traverse.walk import route_walk
 from ..utils import resolve_device
 from ..volumes import BBox, BSphere
@@ -72,6 +72,13 @@ def make_mesh(device_type=None, axis: str = AXIS):
 
 def _rank_and_size(mesh, axis: str):
     return mesh.get_local_rank(axis), mesh.size(0)
+
+
+def _stream_capacity(capacity_per_device: int) -> int:
+    """The emit stream's capacity on a rank: the stream takes aligned
+    1024-contact quanta, so the capacity is rounded up (the result is
+    sliced back)."""
+    return max(1024, -(-capacity_per_device // 1024) * 1024)
 
 
 def _assemble(mesh, axis: str, total, contacts, overflow):
@@ -161,11 +168,8 @@ def _local_sharded_rays(bvh: BVH, points, directions,
     d = tuple(c[lo:lo + per_dev] for c in d)
     cap_dev = capacity_per_device
     if engine == "tiles":
-        # the emit stream takes aligned 1024-contact quanta: its capacity
-        # is rounded up, the result sliced back
-        cap_stream = max(1024, -(-cap_dev // 1024) * 1024)
         total, contacts, ov, _ = traverse_rays_tiles_fixed(
-            bvh, torch.stack(p), torch.stack(d), cap_stream,
+            bvh, torch.stack(p), torch.stack(d), _stream_capacity(cap_dev),
             alg=alg or TileTraversal(row_cap=8, emit_w=8), narrow=narrow)
         col = contacts[:, 1]
         contacts = torch.stack([contacts[:, 0],
@@ -210,43 +214,26 @@ def _local_tiles(bvh1: BVH, bvh2: Optional[BVH], capacity_per_device: int,
     grid, then the two-phase route on superpairs ``rank, rank + n_dev,
     ...`` with the per-rank step caps.  Returns ``(total, contacts
     (capacity_per_device, 2), overflow)``."""
-    alg = alg or TileTraversal()
-    G, NB, W = alg.tile, alg.bands, alg.count_w
     cap_dev = capacity_per_device
-    cap_stream = max(1024, -(-cap_dev // 1024) * 1024)
-    if bvh2 is not None and bvh1.leaf_kind is not bvh2.leaf_kind:
-        raise NotImplementedError(
-            "tile pair traversal requires matching leaf volume kinds")
-    if alg.pair_cap > 128:
+    cap_stream = _stream_capacity(cap_dev)
+    q = _tile_query(bvh1, bvh2, cap_stream, alg, None, narrow)
+    alg = q.alg
+    if not _two_phase(alg, cap_stream):
         raise ValueError("sharded tile path needs pair_cap <= 128 "
                          "(per-pair rows append as one lane row)")
-    fsets, sphere, tiles1, sub1, T1, tiles2, T2 = _tiled_sets(bvh1, bvh2, G,
-                                                              NB)
-    leaves2 = bvh1.leaves if bvh2 is None else bvh2.leaves
-    if max(T1, T2) >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
-    pair_capacity = _pair_capacity_for((T1 + T2) // 2)
-    S_loc = _run_step_cap(-(-(pair_capacity // W + T1) // n_dev), alg)
-    si, sj, nsp, p1_over = _phase1_superpairs(tiles1, pair_capacity, tiles2,
-                                              sp_round=16 * n_dev)
+    S_loc = _run_step_cap(-(-(q.pair_capacity // alg.count_w + q.T_a)
+                            // n_dev), alg)
+    si, sj, nsp, p1_over = _phase1_superpairs(q.tiles, q.pair_capacity,
+                                              q.tiles2, sp_round=16 * n_dev)
     SP_loc = si.shape[0] // n_dev
     nsp_loc = ((nsp - rank + n_dev - 1) // n_dev).clamp(0, SP_loc)
-    narrow_fn = None
-    if narrow is not None:
-        leaves1 = bvh1.leaves
-
-        def narrow_fn(gi, gj):
-            return narrow(leaves1[gi], leaves2[gj])
-
     # emit steps per rank <= the a-tiles of its share (< S_loc) plus one
     # partial group of emit_w per a-tile
     S2_cap, _ = _step_caps(S_loc + cap_stream // (8 * alg.emit_w))
     total, contacts, cap_over, slot_over, _ = _two_phase_slice(
-        fsets, sub1, tiles1 if tiles2 is None else tiles2,
-        si[rank::n_dev].contiguous(), sj[rank::n_dev].contiguous(), nsp_loc,
-        alg, "sphere" if sphere else "box", S_loc, S2_cap,
-        max(4096, cap_stream // 8), cap_stream, bvh1.leaves.index, narrow_fn,
-        leaf_index_b=leaves2.index, sort_pairs=bvh2 is None)
+        q, si[rank::n_dev].contiguous(), sj[rank::n_dev].contiguous(),
+        nsp_loc, S_loc, S2_cap, max(4096, cap_stream // 8), D_want=0,
+        decode_k=0)
     overflow = slot_over | cap_over | (total > cap_dev) | p1_over
     return total, contacts[:cap_dev], overflow
 

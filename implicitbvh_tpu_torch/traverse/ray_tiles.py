@@ -12,15 +12,15 @@ tile self-contact (``traverse/tiles.py``):
 3. One of two routes, chosen as in the JAX package:
 
    - **two-phase** (``pair_cap <= 128`` and ``capacity % 1024 == 0``): the
-     candidate leaf tiles of a ray tile form aligned runs of R; the count
-     kernel (``ops/tile_contact.py``, ray mask, rays as the a set and
-     leaves as the b set) counts each pair's hits and, with ``decode_k``,
-     writes the per-column moment words; pairs with few hits are decoded
-     from those words (``tiles._moment_decode``), the others go through
-     the emit kernel;
+     candidate leaf tiles of a ray tile form aligned runs of R, which
+     ``tiles._two_phase_route`` takes (ray mask, rays as the a set and
+     leaves as the b set): the count kernel counts each pair's hits and,
+     with ``decode_k``, writes the per-column moment words; pairs with few
+     hits are decoded from those words, the others go through the emit
+     kernel;
    - **pair-granularity fallback** (otherwise): the candidate leaf tiles
-     are packed W per step and the slot kernel (``tile_group_contacts``)
-     writes each pair's padded hit slots.
+     are packed W per step for ``tiles._fallback_route``, whose slot
+     kernel writes each pair's padded hit slots.
 
 4. Sorted positions become ``(leaf user index, 1-based ray index)`` pairs.
    Their order in the list is not part of the contract: only the set is.
@@ -44,13 +44,14 @@ from ..morton import DefaultMortonAlgorithm, morton_encode
 from ..options import DEFAULT_OPTIONS, BVHOptions
 from ..ops.grouping import scatter_drop
 from ..ops.subtile import ray_band_bits
-from ..ops.tile_contact import (N_BANDS, tile_group_contacts,
-                                tile_group_emit, tile_run_counts)
-from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal, _extract_contacts,
-                    _finish_contacts, _grow_tiles, _merge_cached_alg,
-                    _merge_streams, _moment_decode, _popcount,
-                    _pow2_capacity, _regroup_emit_runs, _run_step_cap,
-                    _step_caps, _tiled_fields, _wrap_int32)
+from ..ops.tile_contact import N_BANDS
+# not called here: portbench's harness patches this name beside tiles'
+from ..ops.tile_contact import tile_run_counts  # noqa: F401
+from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal, _TileQuery,
+                    _fallback_route, _grow_tiles, _merge_cached_alg,
+                    _popcount, _pow2_capacity, _run_step_cap, _step_caps,
+                    _tiled_fields, _two_phase, _two_phase_route,
+                    _wrap_int32)
 from .lvt import _empty_traversal
 from .types import BVHTraversal, LVTTraversal
 
@@ -117,7 +118,7 @@ def _phase1_ray_runs(rfields, tiles, W: int, S_cap: int, R: int,
     no sort is needed.
 
     Returns ``(a_idx, run_idx, bm_words (NW, S_cap*W), nsteps,
-    num_checks)``."""
+    num_checks, overflow)``, ``overflow`` the steps past ``S_cap``."""
     bits = _ray_tile_hits(rfields, tiles, NB)
     RT, T = bits.shape
     G = rfields.shape[2]
@@ -143,7 +144,7 @@ def _phase1_ray_runs(rfields, tiles, W: int, S_cap: int, R: int,
     rt_idx = torch.arange(RT, dtype=torch.int32, device=bits.device)
     a_idx = scatter_drop(S_cap, torch.where(live, step, S_cap).reshape(-1),
                          rt_idx[:, None].expand(RT, NGT).reshape(-1), 0)
-    return a_idx, run_idx, bm_words, nsteps, num_checks
+    return a_idx, run_idx, bm_words, nsteps, num_checks, nsteps > S_cap
 
 
 def _phase1_ray_tile_groups(rfields, tiles, W: int, S_cap: int):
@@ -191,12 +192,9 @@ def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
     with tracing.span("rays.phase1", dev):
         fields, sphere, tiles, _, T = _tiled_fields(bvh, G)
         rfields, RT = _ray_tile_fields(p, d, perm, G)
-    if T >= 1 << 16 or RT >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
     W = alg.count_w
     if pair_capacity is None:
         pair_capacity = _ray_pair_capacity(RT)
-    mask_kind = "ray_sphere" if sphere else "ray_box"
     # sorted ray position -> original 1-based ray index (0 on the padding)
     iray_map = torch.nn.functional.pad(perm.int() + 1, (0, RT * G - n_rays))
     narrow_fn = None
@@ -208,63 +206,35 @@ def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
             return narrow(leaves[gl], tuple(rflat[:3, gr]),
                           tuple(rflat[3:, gr]))
 
-    if alg.pair_cap > 128 or capacity % 1024:    # the fallback
+    # the rays are the a set; the leaf, a b position, is the first column
+    q = _TileQuery((rfields, fields), "ray_sphere" if sphere else "ray_box",
+                   alg, capacity, bvh.leaves.index, iray_map, narrow_fn,
+                   swap=True, stage="rays")
+    if not _two_phase(alg, capacity):          # the fallback
         S_cap, _ = _step_caps(pair_capacity // W + RT)
-        with tracing.span("rays.phase1", dev):
+        with q.span("phase1"):
             a_idx, b_idx, nsteps = _phase1_ray_tile_groups(rfields, tiles,
                                                            W, S_cap)
-        with tracing.span("rays.emit", dev):
-            gi, gj, counts, slot_overflow = tile_group_contacts(
-                a_idx, b_idx, nsteps.reshape(1), rfields, fields,
-                mask_kind=mask_kind, ROW_CAP=alg.row_cap,
-                CAP_PAIR=alg.pair_cap, dedup=False)
-        # gi are ray positions and gj leaf positions: the leaf comes first
-        with tracing.span("rays.finish", dev):
-            total, contacts = _extract_contacts(
-                gi, gj, counts, bvh.leaves.index, narrow_fn, capacity,
-                leaf_index_b=iray_map, sort_pairs=False, swap_sections=True)
+        total, contacts, slot_overflow = _fallback_route(q, a_idx, b_idx,
+                                                         nsteps)
         overflow = (((nsteps > S_cap) | (total > capacity)).int()
                     | (slot_overflow.int() << 1))
         num_checks = (_popcount(b_idx >> 16).sum().to(torch.float32)
                       * float((G // N_BANDS) * G))
         return total, contacts, overflow, num_checks
 
-    R, NB, DK = alg.run_r, alg.bands, alg.decode_k
+    R = alg.run_r
     S_cap = _run_step_cap(pair_capacity // W + RT, alg)
-    with tracing.span("rays.phase1", dev):
-        a_idx, run_idx, bm_words, nsteps, num_checks = _phase1_ray_runs(
-            rfields, tiles, W, S_cap, R, -(-T // R), NB)
-    with tracing.span("rays.count", dev):
-        counts, colmax, *words = tile_run_counts(
-            a_idx, run_idx, bm_words, nsteps.reshape(1), rfields, fields,
-            mask_kind=mask_kind, R=R, NB=NB, dedup=False, moments=bool(DK))
-        slot_overflow = (counts > alg.pair_cap).any()
-
+    with q.span("phase1"):
+        a_idx, run_idx, bm_words, nsteps, num_checks, run_overflow = \
+            _phase1_ray_runs(rfields, tiles, W, S_cap, R, -(-T // R),
+                             alg.bands)
     # pairs with hits carry 1-3 hits each, far fewer than self-contact
     # pairs, so the emit grid is sized for one hit per pair
-    W2 = alg.emit_w
-    S2_cap, _ = _step_caps(RT + capacity // W2)
-    E2_cap = max(4096, capacity // 4)
-    D_cap = min(max(8192, capacity // 2), E2_cap * R, 1 << 17) if DK else 0
-    with tracing.span("rays.regroup", dev):
-        a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
-            a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap, T,
-            R, NB, decode_k=DK, D_cap=D_cap)
-    with tracing.span("rays.emit", dev):
-        parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] \
-            if DK else []
-        gi, gj, tot, flags = tile_group_emit(
-            a_idx2, b_idx2, nsteps2.reshape(1), rfields, fields,
-            mask_kind=mask_kind, ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-            dedup=False, CAP=capacity)
-    cap_overflow = (nsteps > S_cap) | (nsteps2 > S2_cap) | over2 | \
-        ((flags & 1) > 0)
-    slot_overflow = slot_overflow | ((flags & 2) > 0)
-    with tracing.span("rays.finish", dev):
-        gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
-        total, contacts = _finish_contacts(
-            gj, gi, total, bvh.leaves.index, narrow_fn, capacity,
-            leaf_index_b=iray_map, sort_pairs=False)
+    total, contacts, cap_overflow, slot_overflow = _two_phase_route(
+        q, a_idx, run_idx, bm_words, nsteps, run_overflow,
+        _step_caps(RT + capacity // alg.emit_w)[0], max(4096, capacity // 4),
+        D_want=capacity // 2, decode_k=alg.decode_k)
     overflow = ((cap_overflow | (total > capacity)).int()
                 | (slot_overflow.int() << 1))
     return total, contacts, overflow, num_checks

@@ -1,28 +1,31 @@
-"""Tile contact traversal, of one BVH with itself and of two BVHs: the
-two-phase route and the pair-granularity fallback.
+"""The tile engine: contact of one BVH with itself or with another BVH,
+and (``traverse/ray_tiles.py``) ray queries, on the two-phase route or
+the pair-granularity fallback.
 
 Counterpart of ``implicitbvh_tpu/traverse/tiles.py``: Morton-sorted leaves
 form tiles of G, and a supertile pass with the band-bit kernel
 (``ops/subtile.py``) finds the candidate tile pairs: the upper triangle of
 the tile grid for self-contact, the full grid of (tile of bvh1, tile of
-bvh2) for two trees.  Then one of two routes runs, chosen as in the JAX
-package:
+bvh2) for two trees.  A front end (self and two trees here, the sharded
+path of ``parallel/sharding.py`` on a rank's share, rays in
+``traverse/ray_tiles.py``) fills a :class:`_TileQuery` and runs phase 1;
+then one back end runs, chosen as in the JAX package (:func:`_two_phase`):
 
-- **two-phase** (``pair_cap <= 128`` and ``capacity % 1024 == 0``): the
-  pairs form aligned runs of R b-tiles; the count kernel
-  (``ops/tile_contact.py``) counts each pair's contacts, the pairs with
-  contacts are regrouped, and the emit kernel writes their contacts as one
-  dense stream; with ``decode_k > 0`` the count kernel also writes
-  per-column moment words, and the pairs whose columns hold at most two
-  contacts each are decoded from those words (``_moment_decode``) and
-  skip the emit kernel;
-- **pair-granularity fallback** (otherwise, which includes every capacity
-  of 1024 or less and every ``pair_cap`` that slot-cap growth takes past
-  128): the compaction (``ops/compaction.py:compact_flat``) lists the pairs with
-  their 4-bit band masks, the list is sorted and grouped W b-tiles per
-  a-tile, the slot kernel (``tile_group_contacts``) writes each pair's
-  padded contact slots, and each output slot gathers its contact from
-  them.
+- **two-phase** (:func:`_two_phase_route`; ``pair_cap <= 128`` and
+  ``capacity % 1024 == 0``): the pairs form aligned runs of R b-tiles;
+  the count kernel (``ops/tile_contact.py``) counts each pair's contacts,
+  the pairs with contacts are regrouped, and the emit kernel writes their
+  contacts as one dense stream; with ``decode_k > 0`` the count kernel
+  also writes per-column moment words, and the pairs whose columns hold
+  at most two contacts each are decoded from those words
+  (``_moment_decode``) and skip the emit kernel;
+- **pair-granularity fallback** (:func:`_fallback_route`; otherwise,
+  which includes every capacity of 1024 or less and every ``pair_cap``
+  that slot-cap growth takes past 128): the compaction
+  (``ops/compaction.py:compact_flat``) lists the pairs with their 4-bit
+  band masks, the list is sorted and grouped W b-tiles per a-tile, the
+  slot kernel (``tile_group_contacts``) writes each pair's padded contact
+  slots, and each output slot gathers its contact from them.
 
 User indices finish the list on both routes: sorted ``(min, max)`` pairs
 for self-contact, tree order ``(index in bvh1, index in bvh2)`` for two
@@ -37,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -137,7 +140,7 @@ def _merge_cached_alg(alg: TileTraversal, cache) -> TileTraversal:
     return alg
 
 
-def _compact_flat(flat, values, cap, pad=0):
+def _cumsum_compact(flat, values, cap, pad=0):
     """Compact ``values`` where ``flat`` into ``(cap,)``; (out, count)."""
     v = flat.int()
     pos = torch.cumsum(v, 0) - v
@@ -187,25 +190,6 @@ def _tiled_fields(bvh: BVH, G: int, NB: int = 4):
     return fields, sphere, tiles, sub, T
 
 
-def _tiled_sets(bvh1: BVH, bvh2: Optional[BVH], G: int, NB: int = 4):
-    """The tile engine's inputs for ``bvh1`` with itself (``bvh2`` None) or
-    against ``bvh2``: each tree's fields and tile bounds, and bvh1's
-    sub-band bounds, in that tree's own type (:func:`_tiled_fields`).  A
-    float32 tree against a float64 one is then widened to float64 before
-    any kernel: the widening is exact, and it is what the JAX package's
-    promotion inside its kernels amounts to.  Returns ``(fsets, sphere,
-    tiles1, sub1, T1, tiles2, T2)``, ``fsets`` one field set or two,
-    ``tiles2`` None for one tree."""
-    f1, sphere, tiles1, sub1, T1 = _tiled_fields(bvh1, G, NB)
-    if bvh2 is None:
-        return (f1,), sphere, tiles1, sub1, T1, None, T1
-    f2, _, tiles2, _, T2 = _tiled_fields(bvh2, G)
-    dt = torch.promote_types(f1.dtype, f2.dtype)
-    f1, tiles1, sub1, f2, tiles2 = (
-        t.to(dt) for t in (f1, tiles1, sub1, f2, tiles2))
-    return (f1, f2), sphere, tiles1, sub1, T1, tiles2, T2
-
-
 def _supertile_bounds(tiles):
     """(lo (3, S), up (3, S), S): bounds of the supertiles of SS tiles."""
     T = tiles.shape[1]
@@ -237,16 +221,23 @@ def _phase1_superpairs(tiles, P_cap: int, tiles_b=None, sp_round: int = 16):
     SP_cap = max(max(S1, S2) * SUPERPAIRS_PER_SUPERTILE, 64, P_cap // 64)
     SP_cap = -(-SP_cap // sp_round) * sp_round
     kA = torch.arange(S1 * S2, dtype=torch.int32, device=tiles.device)
-    spacked, nsp = _compact_flat(ov.reshape(-1), kA, SP_cap)
+    spacked, nsp = _cumsum_compact(ov.reshape(-1), kA, SP_cap)
     return spacked // S2, spacked % S2, nsp, nsp > SP_cap
 
 
-def _runs_from_bits(bits, si, sj, G: int, W: int, S_cap: int, R: int,
-                    pad_run: int, NB: int = 4):
-    """(SP_cap, 32, 32) band bits -> sorted, W-grouped aligned-run lists.
+def _slice_runs(sub, tiles_b, si, sj, nsp, G: int, W: int, S_cap: int,
+                R: int, pad_run: int, NB: int, triangle: bool):
+    """A superpair slice ``(si, sj, nsp)`` -> band bits -> sorted,
+    W-grouped aligned-run lists for the count kernel: sub-bands of the a
+    tiles (``sub``) against the b tiles (``tiles_b``), under ``triangle``
+    only the upper triangle.
 
     Returns ``(a_idx, run_idx, bm_words (NW, S_cap*W), nsteps,
     num_checks, overflow)``."""
+    if R not in (8, 16, 32) or G % NB:
+        raise ValueError(f"need run_r in (8, 16, 32) and tile % bands == 0")
+    bits = subtile_band_bits(sub, tiles_b, si, sj, nsp.reshape(1),
+                             triangle=triangle)
     SP_cap = bits.shape[0]
     NG = SS // R
     TPW = 32 // NB
@@ -281,35 +272,6 @@ def _runs_from_bits(bits, si, sj, G: int, W: int, S_cap: int, R: int,
     bm_words = torch.stack(grouped[1:])
     overflow |= nsteps > S_cap
     return a_idx, grouped[0], bm_words, nsteps, num_checks, overflow
-
-
-def _slice_runs(sub, tiles_b, si, sj, nsp, G: int, W: int, S_cap: int,
-                R: int, pad_run: int, NB: int, triangle: bool):
-    """A superpair slice ``(si, sj, nsp)`` -> band bits -> W-grouped run
-    lists for the count kernel: sub-bands of the a tiles (``sub``) against
-    the b tiles (``tiles_b``), under ``triangle`` only the upper triangle.
-
-    Returns ``(a_idx, run_idx, bm_words, nsteps, num_checks, overflow)``."""
-    if R not in (8, 16, 32) or G % NB:
-        raise ValueError(f"need run_r in (8, 16, 32) and tile % bands == 0")
-    bits = subtile_band_bits(sub, tiles_b, si, sj, nsp.reshape(1),
-                             triangle=triangle)
-    return _runs_from_bits(bits, si, sj, G, W, S_cap, R, pad_run, NB)
-
-
-def _phase1_tile_runs(tiles, sub, G: int, P_cap: int, W: int, S_cap: int,
-                      R: int, pad_run: int, NB: int = 4, tiles_b=None):
-    """Superpairs -> band bits -> W-grouped run lists for the count kernel,
-    on the whole superpair list.  With ``tiles_b`` (the JAX package's
-    ``_phase1_cross_runs``): (tile of bvh1, aligned run of bvh2 tiles) over
-    the full grid, with bvh1's sub-band bits.
-
-    Returns ``(a_idx, run_idx, bm_words, nsteps, num_checks, overflow)``."""
-    si, sj, nsp, overflow = _phase1_superpairs(tiles, P_cap, tiles_b)
-    *out, ov2 = _slice_runs(sub, tiles if tiles_b is None else tiles_b, si,
-                            sj, nsp.clamp(max=si.shape[0]), G, W, S_cap, R,
-                            pad_run, NB, triangle=tiles_b is None)
-    return (*out, overflow | ov2)
 
 
 def _fold_sub4(sub):
@@ -365,28 +327,6 @@ def _group_pairs(packed, band, npairs, W: int, S_cap: int, T_pad: int):
     a_idx, (b_idx,), nsteps = leader_group(
         (key >> 16) & 0xFFFF, valid, (b_entry,), (T_pad,), W, S_cap)
     return a_idx, b_idx, nsteps
-
-
-def _extract_contacts(gi, gj, counts, leaf_index, narrow_mask_fn,
-                      capacity: int, leaf_index_b=None,
-                      sort_pairs: bool = True, swap_sections: bool = False):
-    """Per-pair slots -> the final ``(total, contacts)``.  Pair ``p`` owns
-    output slots ``[off[p], off[p] + counts[p])``, ``off`` the exclusive
-    prefix of the uncapped counts (whose sum is the total); each output
-    slot finds its pair by a binary search and gathers its lane.
-    ``swap_sections`` makes ``gj`` the first contact column (rays: the
-    leaf), ``gi`` the second."""
-    SW, CAP_PAIR = gi.shape
-    incl = torch.cumsum(counts, 0, dtype=torch.int32)
-    k = torch.arange(capacity, dtype=torch.int32, device=gi.device)
-    p = torch.searchsorted(incl, k, right=True).clamp(max=SW - 1)
-    lane = (k - (incl[p] - counts[p])).clamp(0, CAP_PAIR - 1)
-    flat = p * CAP_PAIR + lane
-    if swap_sections:
-        gi, gj = gj, gi
-    return _finish_contacts(gi.view(-1)[flat], gj.view(-1)[flat], incl[-1],
-                            leaf_index, narrow_mask_fn, capacity,
-                            leaf_index_b=leaf_index_b, sort_pairs=sort_pairs)
 
 
 def _regroup_emit_runs(a_idx, run_idx, bm_words, counts, colmax, W2: int,
@@ -515,27 +455,25 @@ def _moment_decode(words, dec_pk, dec_flat, dec_cnt, ndec, G: int, K: int,
     return gi, gj, total
 
 
-def _finish_contacts(out_gi, out_gj, total, leaf_index, narrow_mask_fn,
-                     capacity: int, leaf_index_b=None,
-                     sort_pairs: bool = True):
-    """Map a dense stream of global sorted positions to the final
-    user-index contact list, with the optional ``narrow`` filter
-    (re-compacted): sorted ``(min, max)`` pairs, or with ``sort_pairs``
-    off ``(leaf_index[gi], leaf_index_b[gj])`` as they come (rays: leaf
-    and 1-based ray index).  Returns ``(total, contacts (capacity, 2))``."""
-    if leaf_index_b is None:
-        leaf_index_b = leaf_index
+def _finish_contacts(q, out_gi, out_gj, total):
+    """Map a dense stream of global sorted positions to the query's final
+    user-index contact list, with its optional ``narrow`` filter
+    (re-compacted): sorted ``(min, max)`` pairs for self-contact, else
+    ``(leaf_index[gi], leaf_index_b[gj])`` as they come (rays: leaf and
+    1-based ray index).  Returns ``(total, contacts (capacity, 2))``."""
+    leaf_index, leaf_index_b, capacity = q.leaf_index, q.leaf_index_b, \
+        q.capacity
     lane = torch.arange(capacity, device=leaf_index.device)
     out_gi = out_gi.clamp(0, leaf_index.shape[0] - 1).long()
     out_gj = out_gj.clamp(0, leaf_index_b.shape[0] - 1).long()
     ui, uj = leaf_index[out_gi], leaf_index_b[out_gj]
     in_range = lane < total
-    if narrow_mask_fn is not None:
-        keep = in_range & narrow_mask_fn(out_gi, out_gj)
-        ui, total = _compact_flat(keep, ui, capacity)
-        uj, _ = _compact_flat(keep, uj, capacity)
+    if q.narrow_fn is not None:
+        keep = in_range & q.narrow_fn(out_gi, out_gj)
+        ui, total = _cumsum_compact(keep, ui, capacity)
+        uj, _ = _cumsum_compact(keep, uj, capacity)
         in_range = lane < total
-    if sort_pairs:
+    if q.dedup:
         ui, uj = torch.minimum(ui, uj), torch.maximum(ui, uj)
     a = torch.where(in_range, ui, 0)
     b = torch.where(in_range, uj, 0)
@@ -564,30 +502,86 @@ def _merge_streams(parts, capacity: int):
             torch.where(in_range, gjs[flat].int(), 0), total)
 
 
-def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
-                 alg: Optional[TileTraversal], pair_capacity: Optional[int],
-                 narrow):
-    """The fixed-capacity tile traversal of ``bvh1`` with itself (``bvh2``
-    None: the j > i triangle, sorted pairs) or against ``bvh2`` (the full
-    grid, tree-order pairs).  The a side (rows, sub-bands, steps) is bvh1,
-    the b side (runs, columns, pads) bvh2."""
+def _two_phase(alg: TileTraversal, capacity: int) -> bool:
+    """The route rule: the two-phase route for ``pair_cap <= 128`` and a
+    capacity of whole 1024-contact quanta, the fallback otherwise."""
+    return alg.pair_cap <= 128 and capacity % 1024 == 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _TileQuery:
+    """One query as the route back ends see it, filled by its front end.
+    ``fsets``: the a set's fields, then the b set's unless the query is
+    self-contact (one set: the j > i triangle, sorted pairs); rays are
+    the a set.  The finish maps a positions by ``leaf_index``, b positions
+    by ``leaf_index_b``, the b position first with ``swap`` (a ray hit's
+    leaf).  ``stage`` and ``tag`` name the stage spans and their
+    attributes; ``tiles``, ``sub``, ``tiles2`` and ``pair_capacity`` are
+    phase 1's (self and two trees only)."""
+
+    fsets: tuple
+    mask_kind: str
+    alg: TileTraversal
+    capacity: int
+    leaf_index: torch.Tensor
+    leaf_index_b: torch.Tensor
+    narrow_fn: Optional[Callable] = None
+    swap: bool = False
+    stage: str = "tiles"
+    tag: dict = dataclasses.field(default_factory=dict)
+    tiles: Optional[torch.Tensor] = None
+    sub: Optional[torch.Tensor] = None
+    tiles2: Optional[torch.Tensor] = None
+    pair_capacity: int = 0
+
+    def __post_init__(self):
+        if max(f.shape[1] for f in self.fsets) >= 1 << 16:
+            raise ValueError("tile count exceeds 65536; raise the tile size")
+
+    @property
+    def dedup(self) -> bool:
+        return len(self.fsets) == 1
+
+    @property
+    def T_a(self) -> int:
+        return self.fsets[0].shape[1]
+
+    @property
+    def T_b(self) -> int:
+        return self.fsets[-1].shape[1]
+
+    def span(self, step: str):
+        return tracing.span(f"{self.stage}.{step}", self.fsets[0].device,
+                            **self.tag)
+
+
+def _tile_query(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
+                alg: Optional[TileTraversal], pair_capacity: Optional[int],
+                narrow) -> _TileQuery:
+    """The setup of a self (``bvh2`` None) or two-tree query, single-device
+    or sharded: the leaf-kind check, the field sets (a ``tiles.fields``
+    span), the default pair capacity, the ``narrow`` filter and the
+    finish's index maps."""
     alg = alg or TileTraversal()
-    G = alg.tile
-    NB = alg.bands
     pair = bvh2 is not None
-    two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
     if pair and bvh1.leaf_kind is not bvh2.leaf_kind:
         raise NotImplementedError(
             "tile pair traversal needs leaves of one kind in both BVHs; "
             "LVTTraversal() takes mixed kinds")
-    dev = bvh1.device
-    tag = {"pair": True} if pair else {}    # the stage spans' attributes
-    with tracing.span("tiles.fields", dev, bodies=1 + pair):
-        fsets, sphere, tiles1, sub1, T1, tiles2, T2 = _tiled_sets(
-            bvh1, bvh2, G, NB)
+    with tracing.span("tiles.fields", bvh1.device, bodies=1 + pair):
+        f1, sphere, tiles1, sub1, T1 = _tiled_fields(bvh1, alg.tile,
+                                                     alg.bands)
+        fsets, tiles2, T2 = (f1,), None, T1
+        if pair:
+            # a float32 tree against a float64 one is widened to float64
+            # before any kernel: exact, and what the JAX package's
+            # promotion inside its kernels amounts to
+            f2, _, tiles2, _, T2 = _tiled_fields(bvh2, alg.tile)
+            dt = torch.promote_types(f1.dtype, f2.dtype)
+            f1, tiles1, sub1, f2, tiles2 = (
+                t.to(dt) for t in (f1, tiles1, sub1, f2, tiles2))
+            fsets = (f1, f2)
     leaves2 = bvh2.leaves if pair else bvh1.leaves
-    if max(T1, T2) >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
     if pair_capacity is None:
         pair_capacity = _pair_capacity_for((T1 + T2) // 2)
     narrow_fn = None
@@ -597,43 +591,119 @@ def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
         def narrow_fn(gi, gj):
             return narrow(leaves1[gi], leaves2[gj])
 
-    mask_kind = "sphere" if sphere else "box"
-    finish = dict(leaf_index_b=leaves2.index, sort_pairs=not pair)
-    W = alg.count_w
-    if not two_phase:          # the pair-granularity fallback
-        with tracing.span("tiles.phase1", dev, **tag):
-            packed, band, npairs = _phase1_tile_pairs(tiles1, sub1,
-                                                      pair_capacity, tiles2)
-            S_cap, _ = _step_caps(pair_capacity // W + T1)
+    return _TileQuery(
+        fsets, "sphere" if sphere else "box", alg, capacity,
+        bvh1.leaves.index, leaves2.index, narrow_fn,
+        tag={"pair": True} if pair else {}, tiles=tiles1, sub=sub1,
+        tiles2=tiles2, pair_capacity=pair_capacity)
+
+
+def _two_phase_route(q: _TileQuery, a_idx, run_idx, bm_words, nsteps,
+                     run_overflow, S2_cap: int, E2_cap: int, D_want: int,
+                     decode_k: int):
+    """The two-phase back end on a front end's run lists: the count kernel,
+    regroup, moment decode (``decode_k > 0``; ``D_cap`` from ``D_want``),
+    the emit kernel (step cap ``S2_cap``, at most ``E2_cap`` live runs),
+    merge and finish.  Returns ``(total, contacts (capacity, 2),
+    cap_overflow, slot_overflow)``: ``cap_overflow`` is ``run_overflow``
+    or a list or the stream past its cap (the total past ``capacity`` is
+    left to the caller), ``slot_overflow`` a pair or a row past its cap."""
+    alg, fsets, capacity = q.alg, q.fsets, q.capacity
+    R, NB, DK, dedup = alg.run_r, alg.bands, decode_k, q.dedup
+    with q.span("count"):
+        counts, colmax, *words = tile_run_counts(
+            a_idx, run_idx, bm_words, nsteps.reshape(1), *fsets,
+            mask_kind=q.mask_kind, R=R, NB=NB, dedup=dedup,
+            moments=bool(DK))
+        slot_overflow = (counts > alg.pair_cap).any()
+
+    D_cap = min(max(8192, D_want), E2_cap * R, 1 << 17) if DK else 0
+    with q.span("regroup"):
+        a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
+            a_idx, run_idx, bm_words, counts, colmax, alg.emit_w, S2_cap,
+            E2_cap, q.T_b, R, NB, decode_k=DK, D_cap=D_cap)
+    with q.span("emit"):
+        parts = [_moment_decode(words[0], *dec[0], fsets[0].shape[2], DK,
+                                capacity)] if DK else []
+        gi, gj, tot, flags = tile_group_emit(
+            a_idx2, b_idx2, nsteps2.reshape(1), *fsets,
+            mask_kind=q.mask_kind, ROW_CAP=alg.row_cap,
+            CAP_PAIR=alg.pair_cap, dedup=dedup, CAP=capacity)
+    cap_overflow = run_overflow | (nsteps2 > S2_cap) | over2 | \
+        ((flags & 1) > 0)
+    slot_overflow = slot_overflow | ((flags & 2) > 0)
+    with q.span("merge"):
+        gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
+    with q.span("finish"):
+        if q.swap:
+            gi, gj = gj, gi
+        total, contacts = _finish_contacts(q, gi, gj, total)
+    return total, contacts, cap_overflow, slot_overflow
+
+
+def _fallback_route(q: _TileQuery, a_idx, b_idx, nsteps):
+    """The fallback's back end on a front end's W-grouped pair lists: the
+    slot kernel writes each pair's padded slots; pair ``p`` owns output
+    slots ``[off[p], off[p] + counts[p])``, ``off`` the exclusive prefix of
+    the uncapped counts (whose sum is the total), and each output slot
+    finds its pair by a binary search and gathers its lane.  Returns
+    ``(total, contacts (capacity, 2), slot_overflow)``."""
+    alg = q.alg
+    with q.span("emit"):
+        gi, gj, counts, slot_overflow = tile_group_contacts(
+            a_idx, b_idx, nsteps.reshape(1), *q.fsets,
+            mask_kind=q.mask_kind, ROW_CAP=alg.row_cap,
+            CAP_PAIR=alg.pair_cap, dedup=q.dedup)
+    with q.span("finish"):
+        SW, CAP_PAIR = gi.shape
+        incl = torch.cumsum(counts, 0, dtype=torch.int32)
+        k = torch.arange(q.capacity, dtype=torch.int32, device=gi.device)
+        p = torch.searchsorted(incl, k, right=True).clamp(max=SW - 1)
+        lane = (k - (incl[p] - counts[p])).clamp(0, CAP_PAIR - 1)
+        flat = p * CAP_PAIR + lane
+        if q.swap:
+            gi, gj = gj, gi
+        total, contacts = _finish_contacts(q, gi.view(-1)[flat],
+                                           gj.view(-1)[flat], incl[-1])
+    return total, contacts, slot_overflow
+
+
+def _tiles_fixed(bvh1: BVH, bvh2: Optional[BVH], capacity: int,
+                 alg: Optional[TileTraversal], pair_capacity: Optional[int],
+                 narrow):
+    """The fixed-capacity tile traversal of ``bvh1`` with itself (``bvh2``
+    None: the j > i triangle, sorted pairs) or against ``bvh2`` (the full
+    grid, tree-order pairs).  The a side (rows, sub-bands, steps) is bvh1,
+    the b side (runs, columns, pads) bvh2."""
+    q = _tile_query(bvh1, bvh2, capacity, alg, pair_capacity, narrow)
+    alg, T1, P_cap = q.alg, q.T_a, q.pair_capacity
+    G, W = alg.tile, alg.count_w
+    if not _two_phase(alg, capacity):   # the pair-granularity fallback
+        with q.span("phase1"):
+            packed, band, npairs = _phase1_tile_pairs(q.tiles, q.sub, P_cap,
+                                                      q.tiles2)
+            S_cap, _ = _step_caps(P_cap // W + T1)
             a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W,
-                                                S_cap, T2)
-        pair_overflow = (npairs > pair_capacity) | (nsteps > S_cap)
-        with tracing.span("tiles.emit", dev, **tag):
-            gi, gj, counts, slot_overflow = tile_group_contacts(
-                a_idx, b_idx, nsteps.reshape(1), *fsets,
-                mask_kind=mask_kind, ROW_CAP=alg.row_cap,
-                CAP_PAIR=alg.pair_cap, dedup=not pair)
-        with tracing.span("tiles.finish", dev, **tag):
-            total, contacts = _extract_contacts(
-                gi, gj, counts, bvh1.leaves.index, narrow_fn, capacity,
-                **finish)
+                                                S_cap, q.T_b)
+        pair_overflow = (npairs > P_cap) | (nsteps > S_cap)
+        total, contacts, slot_overflow = _fallback_route(q, a_idx, b_idx,
+                                                         nsteps)
         overflow = ((pair_overflow | (total > capacity)).int()
                     | (slot_overflow.int() << 1))
         lane = torch.arange(band.shape[0], device=band.device)
         num_checks = (torch.where(lane < npairs, _popcount(band), 0).sum()
                       .to(torch.float32) * float((G // N_BANDS) * G))
         return total, contacts, overflow, num_checks
-    S_cap = _run_step_cap(pair_capacity // W + T1, alg)
-    with tracing.span("tiles.phase1", dev, **tag):
-        si, sj, nsp, sp_overflow = _phase1_superpairs(tiles1, pair_capacity,
-                                                      tiles2)
+    S_cap = _run_step_cap(P_cap // W + T1, alg)
+    with q.span("phase1"):
+        si, sj, nsp, sp_overflow = _phase1_superpairs(q.tiles, P_cap,
+                                                      q.tiles2)
     total, contacts, cap_overflow, slot_overflow, num_checks = \
         _two_phase_slice(
-            fsets, sub1, tiles1 if tiles2 is None else tiles2, si, sj,
-            nsp.clamp(max=si.shape[0]), alg, mask_kind, S_cap,
+            q, si, sj, nsp.clamp(max=si.shape[0]), S_cap,
             _step_caps(T1 + capacity // (8 * alg.emit_w))[0],
-            max(4096, capacity // 8), capacity, bvh1.leaves.index, narrow_fn,
-            decode_k=0 if pair else alg.decode_k, **finish)
+            max(4096, capacity // 8), D_want=capacity // 8,
+            decode_k=alg.decode_k if q.dedup else 0)
     overflow = ((sp_overflow | cap_overflow | (total > capacity)).int()
                 | (slot_overflow.int() << 1))
     return total, contacts, overflow, num_checks
@@ -650,62 +720,22 @@ def _run_step_cap(need: int, alg: TileTraversal) -> int:
     return S_cap
 
 
-def _two_phase_slice(fsets, sub, tiles_b, si, sj, nsp, alg: TileTraversal,
-                     mask_kind: str, S_cap: int, S2_cap: int, E2_cap: int,
-                     capacity: int, leaf_index, narrow_fn, decode_k: int = 0,
-                     leaf_index_b=None, sort_pairs: bool = True):
-    """The two-phase route on a superpair slice ``(si, sj, nsp)``: band
-    bits, run lists, count kernel, regroup, moment decode (``decode_k >
-    0``), emit kernel and finish, with the step caps ``S_cap`` (count) and
-    ``S2_cap`` (emit), at most ``E2_cap`` live runs and a ``capacity``-long
-    emit stream.  ``fsets`` holds one field set (self-contact: the j > i
-    triangle, sorted pairs) or two (tree order).  The single-device paths
-    run it on the whole superpair list, the sharded ones
-    (``parallel/sharding.py``) on a rank's share.
-
-    Returns ``(total, contacts (capacity, 2), cap_overflow, slot_overflow,
-    num_checks)``: ``cap_overflow`` is a run list, step list or the stream
-    past its cap (the total past ``capacity`` is left to the caller),
-    ``slot_overflow`` a pair past ``pair_cap`` or a row past ``row_cap``."""
-    self_pairs = len(fsets) == 1
-    G, R, NB, W2, DK = (fsets[0].shape[2], alg.run_r, alg.bands, alg.emit_w,
-                        decode_k)
-    T2 = fsets[-1].shape[1]
-    dev = sub.device
-    tag = {} if self_pairs else {"pair": True}  # the stage spans' attributes
-    with tracing.span("tiles.phase1", dev, **tag):
+def _two_phase_slice(q: _TileQuery, si, sj, nsp, S_cap: int, S2_cap: int,
+                     E2_cap: int, D_want: int, decode_k: int):
+    """The two-phase route of a self or two-tree query on a superpair
+    slice ``(si, sj, nsp)`` (all of it on one device, a rank's share when
+    sharded): :func:`_slice_runs` with the step cap ``S_cap``, then
+    :func:`_two_phase_route`.  Returns its four values and
+    ``num_checks``."""
+    alg, R = q.alg, q.alg.run_r
+    with q.span("phase1"):
         a_idx, run_idx, bm_words, nsteps, num_checks, run_overflow = \
-            _slice_runs(sub, tiles_b, si, sj, nsp, G, alg.count_w, S_cap, R,
-                        -(-T2 // R), NB, triangle=self_pairs)
-    with tracing.span("tiles.count", dev, **tag):
-        counts, colmax, *words = tile_run_counts(
-            a_idx, run_idx, bm_words, nsteps.reshape(1), *fsets,
-            mask_kind=mask_kind, R=R, NB=NB, dedup=self_pairs,
-            moments=bool(DK))
-        slot_overflow = (counts > alg.pair_cap).any()
-
-    D_cap = min(max(8192, capacity // 8), E2_cap * R, 1 << 17) if DK else 0
-    with tracing.span("tiles.regroup", dev, **tag):
-        a_idx2, b_idx2, nsteps2, over2, *dec = _regroup_emit_runs(
-            a_idx, run_idx, bm_words, counts, colmax, W2, S2_cap, E2_cap,
-            T2, R, NB, decode_k=DK, D_cap=D_cap)
-    with tracing.span("tiles.emit", dev, **tag):
-        parts = [_moment_decode(words[0], *dec[0], G, DK, capacity)] \
-            if DK else []
-        gi, gj, tot, flags = tile_group_emit(
-            a_idx2, b_idx2, nsteps2.reshape(1), *fsets, mask_kind=mask_kind,
-            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap, dedup=self_pairs,
-            CAP=capacity)
-    cap_overflow = run_overflow | (nsteps2 > S2_cap) | over2 | \
-        ((flags & 1) > 0)
-    slot_overflow = slot_overflow | ((flags & 2) > 0)
-    with tracing.span("tiles.merge", dev, **tag):
-        gi, gj, total = _merge_streams(parts + [(gi, gj, tot)], capacity)
-    with tracing.span("tiles.finish", dev, **tag):
-        total, contacts = _finish_contacts(
-            gi, gj, total, leaf_index, narrow_fn, capacity,
-            leaf_index_b=leaf_index_b, sort_pairs=sort_pairs)
-    return total, contacts, cap_overflow, slot_overflow, num_checks
+            _slice_runs(q.sub, q.tiles if q.dedup else q.tiles2, si, sj, nsp,
+                        alg.tile, alg.count_w, S_cap, R, -(-q.T_b // R),
+                        alg.bands, triangle=q.dedup)
+    return (*_two_phase_route(q, a_idx, run_idx, bm_words, nsteps,
+                              run_overflow, S2_cap, E2_cap, D_want,
+                              decode_k), num_checks)
 
 
 def traverse_tiles_fixed(bvh: BVH, capacity: int, *,

@@ -4,7 +4,8 @@ Two sphere (or box) sets, made by numpy from seeds, are built into BVHs by
 both packages and go through ``traverse_tiles_pair_fixed`` on both routes
 (the JAX package's Pallas kernels in interpret mode, the port's kernels as
 their plain PyTorch versions), through the cross forms of phase 1
-(``_phase1_tile_runs`` and ``_phase1_tile_pairs`` with a second tile set,
+(``_phase1_superpairs`` then ``_slice_runs``, and ``_phase1_tile_pairs``,
+with a second tile set,
 against the JAX package's ``_phase1_cross_runs`` and
 ``_phase1_cross_pairs``), and
 through the growth wrapper ``traverse_tiles_pair``.
@@ -255,10 +256,12 @@ def test_phase1_cross_runs_matches_jax(phase1_scene, NB):
     want = jtiles._phase1_cross_runs(jlo1, jup1, jslo, jsup, jlo2, jup2, G,
                                      P_cap, W, S_cap, R, pad_run, NB,
                                      interpret=True)
-    got = ttiles._phase1_tile_runs(ttiles1, tsub1, G, P_cap, W, S_cap, R,
-                                   pad_run, NB, tiles_b=ttiles2)
+    si, sj, nsp, sp_ov = ttiles._phase1_superpairs(ttiles1, P_cap, ttiles2)
+    ta, tr, tbm, tn, tnc, run_ov = ttiles._slice_runs(
+        tsub1, ttiles2, si, sj, nsp.clamp(max=si.shape[0]), G, W, S_cap, R,
+        pad_run, NB, triangle=False)
+    tov = sp_ov | run_ov
     ja, jr, jbm, jn, jnc, jov = want
-    ta, tr, tbm, tn, tnc, tov = got
     n = int(tn)
     assert n == int(jn) > 0 and bool(tov) == bool(jov) is False
     assert float(tnc) == float(jnc)

@@ -104,9 +104,9 @@ def scene(request):
             bvh, p, d, capacity, alg=tb.TileTraversal(**params))
         assert int(out[2]) == 0 and int(out[0]) > 0
 
-    dec = record(lambda: fixed(dict(TWO_PHASE, decode_k=8)), tray)
-    emit = record(lambda: fixed(TWO_PHASE), tray)
-    slots = record(lambda: fixed(FALLBACK), tray)
+    dec = record(lambda: fixed(dict(TWO_PHASE, decode_k=8)), ttiles)
+    emit = record(lambda: fixed(TWO_PHASE), ttiles)
+    slots = record(lambda: fixed(FALLBACK), ttiles)
     assert "tile_group_emit" in emit and "_moment_decode" not in emit
     return {"kind": "ray_" + request.param,
             "tile_run_counts": dec["tile_run_counts"],

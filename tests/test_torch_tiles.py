@@ -200,6 +200,28 @@ def test_merge_streams_matches_jax():
             assert np.array_equal(np.asarray(w), g.numpy())
 
 
+@pytest.mark.parametrize("query", ["self", "pair", "rays", "sharded"])
+def test_every_front_end_refuses_past_65536_tiles(query):
+    """One check holds every front end to tile indices below 2^16 (they
+    are packed 16 bits to a word): 2^18 leaves, or 2^18 rays, in tiles of
+    4 raise ``ValueError`` before any kernel runs."""
+    from implicitbvh_tpu_torch.parallel import sharding
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(3, 1 << 18, generator=g) * 100
+    big = tb.build(tb.BSphere(tuple(x), torch.full((1 << 18,), 0.1)))
+    small = tb.build(tb.BSphere(tuple(x[:, :100]), torch.full((100,), 0.1)))
+    alg = tb.TileTraversal(tile=4, bands=4)
+    run = {"self": lambda: tb.traverse_tiles_fixed(big, 1024, alg=alg),
+           "pair": lambda: tb.traverse_tiles_pair_fixed(small, big, 1024,
+                                                        alg=alg),
+           "rays": lambda: tb.traverse_rays_tiles_fixed(small, x, x, 1024,
+                                                        alg=alg),
+           "sharded": lambda: sharding._local_sharded_tile_self_contact(
+               big, 1024, 0, 2, alg=alg)}[query]
+    with pytest.raises(ValueError, match="tile count exceeds 65536"):
+        run()
+
+
 def test_readme_demo():
     xs = np.array([[0, 0, 0], [0, 0, 1], [0, 0, 2], [0, 0, 3], [0, 0, 4]],
                   np.float32)

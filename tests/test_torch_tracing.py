@@ -21,7 +21,7 @@ TILE_STAGES = {"tiles.fields", "tiles.phase1", "tiles.count",
 FALLBACK_STAGES = {"tiles.fields", "tiles.phase1", "tiles.emit",
                    "tiles.finish"}
 RAY_STAGES = {"rays.sort", "rays.phase1", "rays.count", "rays.regroup",
-              "rays.emit", "rays.finish"}
+              "rays.emit", "rays.merge", "rays.finish"}
 BUILD_STAGES = {"build.morton", "build.sort", "build.nodes"}
 
 
@@ -277,6 +277,38 @@ def test_the_self_route_marks_no_stage_and_counts_its_triangle():
     assert "calls.tiles_pair" not in c and c["syncs"] == 0
     assert c["tiles.grid_cells"] == 5 * 6 // 2 == \
         supertiles(5000) * (supertiles(5000) + 1) // 2
+
+
+@pytest.mark.parametrize("pair_cap, capacity, route", [
+    (32, 1 << 15, "two_phase"), (256, 1 << 15, "fallback"),
+    (32, 30_000, "fallback"), (128, 2048, "two_phase"),
+    (129, 2048, "fallback")])
+def test_the_three_fixed_queries_take_one_route(pair_cap, capacity, route):
+    """Self, two trees and rays take the same route for the same
+    ``(pair_cap, capacity)``: the two-phase route's stages (a count
+    stage) for ``pair_cap <= 128`` and whole 1024-contact quanta, the
+    fallback's (no count, regroup or merge stage) otherwise."""
+    bvh1 = tb.build(particles(600, 8.0))
+    bvh2 = tb.build(particles(400, 7.0, seed=5))
+    p, d = rays(200, 8.0)
+    alg = tb.TileTraversal(tile=32, row_cap=16, pair_cap=pair_cap)
+    queries = {
+        "tiles": lambda: tb.traverse_tiles_fixed(bvh1, capacity, alg=alg),
+        "pair": lambda: tb.traverse_tiles_pair_fixed(bvh1, bvh2, capacity,
+                                                     alg=alg),
+        "rays": lambda: tb.traverse_rays_tiles_fixed(bvh1, p, d, capacity,
+                                                     alg=alg)}
+    for query, run in queries.items():
+        tracing.reset()
+        with tracing.enabled():
+            run()
+        names = set(by_name(tracing.snapshot()["spans"]))
+        stage = "rays" if query == "rays" else "tiles"
+        two_phase = {f"{stage}.{s}" for s in ("count", "regroup", "merge")}
+        assert (two_phase <= names if route == "two_phase"
+                else not two_phase & names), (query, names)
+        assert {f"{stage}.phase1", f"{stage}.emit",
+                f"{stage}.finish"} <= names, (query, names)
 
 
 def test_a_growing_pair_call_counts_once():
