@@ -247,6 +247,16 @@ held against their plain versions at the path's inputs only.
     written once), the plain chain's time and a lone ``torch.cummax`` of
     the same length (``library_ms``).  Every tile path of the phases
     before runs L1.
+27. T1 (``ops.tree_build``, the build's kernels around one ``torch.sort``
+    of int32 keys) at 2^20 and 249,882 sphere leaves: one launch a build,
+    kernel == plain bit for bit (sorted leaves, indices, codes, nodes,
+    skips) with no host sync, its eager time (the sort included), its four
+    kernels' device time beside their bytes bound, the plain chain's time
+    and a lone ``torch.sort`` of the chain's int64 keys (``library_ms``);
+    then the three graph cells' step drivers (``portbench``) set up at
+    their sizes, one warm-up, and every build of their warm-up and capture
+    counted: ``launches.tree_build`` equals ``calls.build``.  Every build
+    of the phases before on the card runs T1.
 
 Each phase group prints its seconds and the script's total so far.
 W1's and W2's rows (``walk_lanes[...]``, ``dfs_lanes[self]``) are their
@@ -3539,6 +3549,106 @@ def main() -> int:
     log(f"time: phase 26 (L1 at the tile cells' shapes) "
         f"{time.perf_counter() - t26:.1f} s; the script "
         f"{time.perf_counter() - t_script:.1f} s")
+
+    # 27. T1, the build, at 2^20 spheres (the bench scene's) and at the
+    # 249,882 of the dragon cells: kernel == plain bit for bit under the sync
+    # check, times beside its bytes bound, the plain chain and a lone
+    # torch.sort of the chain's int64 keys; then every build of the three
+    # graph cells' steps (their step drivers' warm-up and capture at the
+    # cells' sizes) goes through T1: launches.tree_build == calls.build
+    t27 = time.perf_counter()
+    import importlib
+    t1m = importlib.import_module("implicitbvh_tpu_torch.ops.tree_build")
+    t1_names = ("extrema_kernel", "codes_kernel", "leaves_kernel",
+                "top_kernel")
+    opts = ib.BVHOptions()
+    for label, n_tri, seed in (("2^20", N_BENCH, 0), ("249882", N_DRAGON,
+                                                       0)):
+        sph = ib.bsphere_from_triangles(*to_dev(synth_triangles(n_tri, seed),
+                                                dev))
+        tree = ib.ImplicitTree.from_num_leaves(n_tri)
+
+        def t1_build():
+            return ops.tree_build(sph, None, tree, 1, ib.BBox, opts)
+
+        def plain_build():
+            return t1m.tree_build_plain(sph, None, tree, 1, ib.BBox, opts)
+
+        row = f"tree_build[{label}]"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = t1_build()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        n_launches = ops.launch_count(ops.tree_build)
+        want = plain_build()
+        torch.cuda.synchronize()
+        flat = lambda o: (*t1m._fields(o[0]), o[1], o[2],
+                          *t1m._fields(o[3]), o[4])
+        if n_launches != 1 or any(
+                a.dtype != b.dtype or not torch.equal(
+                    a.view(torch.int32) if a.dtype == torch.float32 else a,
+                    b.view(torch.int32) if b.dtype == torch.float32 else b)
+                for a, b in zip(flat(got), flat(want), strict=True)):
+            raise AssertionError(f"{row} differs from its plain version")
+        codes = ib.morton_encode(sph.xs, opts.morton)
+        key64 = codes ^ (-1 << 63)              # the chain's sort key
+        k_ms = time_ms(t1_build)
+        d_ms = device_ms(t1_build, t1_names, per_record=True)
+        sort_dms = device_ms(lambda: torch.sort(codes.int(), stable=True),
+                             ("RadixSort",))
+        p_ms = time_ms(plain_build)
+        lib_ms = time_ms(lambda: torch.sort(key64, stable=True))
+        n = n_tri
+        # T1a reads the centres; T1b the four fields, and writes int32 keys
+        # and 16-byte records; T1c reads the sorted keys, the permutation
+        # and the records, and writes the fields sorted with an int32 index
+        # and an int64 code, and the nodes
+        n_bytes = 4 * 3 * n + (16 + 4 + 16) * n + (4 + 8 + 16) * n + \
+            (16 + 4 + 8) * n + 4 * 6 * tree.num_nodes
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"time: {row} ({n} sphere leaves, {tree.levels} levels, K "
+            f"{t1m.tile_log2(torch.float32, tree)}): T1 build {k_ms:.4f} ms "
+            f"(the sort included), T1's four kernels on the device "
+            f"{fmt_ms(d_ms)}, the int32 sort's kernels {fmt_ms(sort_dms)}, "
+            f"bound {b_ms:.6f} ms (bytes: {n_bytes}), plain chain "
+            f"{p_ms:.4f} ms, torch.sort of the int64 keys alone "
+            f"{lib_ms:.4f} ms; T1 == plain (exact), no host sync [{card}]")
+        rows.append({"name": row, "route": "cuda",
+                     "source": "implicitbvh_tpu_torch/csrc/tree_build.cu",
+                     "replaces": "none: XLA ops in implicitbvh_tpu/build.py",
+                     "launches": n_launches, "max_abs_err": 0, "ms": k_ms,
+                     "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": "bytes", "bound_bytes_ms": b_ms,
+                     "bound_operations_ms": 0.0, "library_ms": lib_ms})
+        del sph, got, want, codes, key64
+    import portbench.harness as pb
+    for cell_name in ("particles1m-step-graph", "dragon-lvt-graph",
+                      "bed1m-tool250k-pair-graph"):
+        cell = pb.load_cell(cell_name)
+        cell.traffic["warmup"] = 1
+        if "settle_s" in cell.traffic:
+            cell.traffic["settle_s"] = 0
+        tracing.reset()
+        drv = pb.step_driver(cell.traffic)(cell.config, cell.traffic,
+                                           2 ** 31 + 27, dev, False)
+        drv.setup()
+        drv.run(0)
+        torch.cuda.synchronize()
+        c = tracing.counters()
+        n_builds, n_t1 = c.get("calls.build", 0), c.get(
+            "launches.tree_build", 0)
+        if n_builds < 1 or n_t1 != n_builds:
+            raise AssertionError(f"{cell_name}: {n_builds} builds, "
+                                 f"{n_t1} of them through T1")
+        log(f"{cell_name}: every build of its step's warm-up and capture "
+            f"went through T1 ({n_t1} of {n_builds})")
+        del drv
+        torch.cuda.empty_cache()
+    log(f"time: phase 27 (T1, the build) {time.perf_counter() - t27:.1f} s; "
+        f"the script {time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -22,7 +22,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("band_bits", "run_counts", "group_emit", "group_contacts",
-           "compact", "walk", "dfs", "ray_band_bits", "leader_group")
+           "compact", "walk", "dfs", "ray_band_bits", "leader_group",
+           "tree_build")
 # -fmad=false: no FMA contraction anywhere (the predicates also use
 # explicitly rounded intrinsics); -Xptxas -v reports registers and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
